@@ -10,16 +10,33 @@ so the script exits non-zero and prints no final line:
    (nvidia-smi) and builds the NTT kernels from `vectorx_tpu_torch/csrc/`.
 1. kernels against their plain torch versions on the card: the whole
    transform (forward, inverse, coset, LDE, round trip) at log_n in
-   {1, 2, 5, 10, 13, 14, 16, 20, 23, 24} with batches, leading dims and
-   non-canonical inputs, each kernel alone at the shapes the main path gives
-   it, and median times at (8, 2^20), (4, 2^23), (1, 2^24).
+   {1, 2, 5, 10, 13, 14, 16, 17, 20, 23, 24} with batches, leading dims
+   and non-canonical inputs; the header_range path's own transforms (a
+   Blake2b chunk's 2664-row trace iNTT at 2^14 and its coset LDE to 2^17,
+   whole and in the prover's row blocks); each kernel alone at every step
+   of the 2^24 and (512, 2^17) four-step plans, timed at both splits; and
+   median times at (8, 2^20), (4, 2^23), (1, 2^24).
 2. the `entry()` twin on CUDA and on CPU: equal Merkle roots.
-3. the main path at a real size and the production FRI config
-   (`FriConfig()`: rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=21)
-   and RangeCheckAir(log_n=20, bits=16, V=8), each proved on CUDA cold, warm
-   and warm with per-stage timers, verified after each, and rejected after
-   tampering; every kernel must have launched during the proofs.
+3. the STARK prover path at the production FRI config (`FriConfig()`:
+   rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=20) and
+   RangeCheckAir(log_n=19, bits=16, V=8), each proved on CUDA cold and warm
+   (the warm proof with per-stage timers), verified after each, and
+   rejected after tampering; every kernel must have launched.
 4. CUDA against CPU proofs at log_n=8: identical proof JSON.
+5. the byte hashes on the card: `blake2b_batch` over 4096 messages of
+   random lengths up to 35,840 B against hashlib, `sha256_batch` against
+   hashlib, the SHA-256 Merkle root of 256 leaves against the host root.
+6. batched ed25519 on the card: 300 keys, 240 signed, accepted; one forged
+   signature rejected; the CPU run agrees.
+7. the header_range statement at the reference deployment's size (tree
+   256, 300 authorities, mixed headers of ~360-2100 B): the non-ZK
+   `HeaderRangeCircuit.run` and the component-proof
+   `prove_header_range_zk` at the production FRI config on the card, both
+   outputs equal to `DummyHeaderRange`'s; `verify_header_range_zk` accepts,
+   a tampered header hash and a tampered SHA chunk proof are rejected;
+   every kernel must have launched during the proof.
+8. the tree=2 ZK statement of the tests at their small config: every
+   component proof's JSON identical on CUDA and on CPU.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and `{"ok": true, "device": {...}}`.
@@ -27,8 +44,10 @@ limit, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -91,7 +110,7 @@ def random_field(rng, shape, device):
 # Phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-SIZES = (1, 2, 5, 10, 13, 14, 16, 20, 23, 24)
+SIZES = (1, 2, 5, 10, 13, 14, 16, 17, 20, 23, 24)
 TIMED = ((8, 20), (4, 23), (1, 24))
 
 
@@ -102,6 +121,7 @@ def phase_kernels(dev, card: str) -> dict:
     from vectorx_tpu_torch.field import goldilocks as gl
     from vectorx_tpu_torch.ntt import (coset_intt, coset_ntt, cuda_ntt, intt,
                                        lde, ntt)
+    from vectorx_tpu_torch.stark import blake2b_air, stages
 
     ntt_mod = importlib.import_module("vectorx_tpu_torch.ntt.ntt")
 
@@ -147,21 +167,73 @@ def phase_kernels(dev, card: str) -> dict:
         same(got, want, f"lde log_n={log_n}")
     log("phase 1: lde log_n in (10, 16, 21) at rate 3 == plain")
 
-    # each kernel alone at the main path's shapes (the 2^24 four-step)
+    # the header_range path's transforms at its own widths: a 2^14-row
+    # Blake2b chunk's trace iNTT (WIDTH, 2^14) and its coset LDE to 2^17
+    # points, whole (`lde`) and in the row blocks `stages.coset_lde_rows`
+    # hands the kernels, against the plain transform block by block
+    t0 = time.perf_counter()
+    rows_n, block = blake2b_air.WIDTH, stages.LDE_CHUNK_ELEMS >> 17
+    x = random_field(rng, (rows_n, 1 << 14), dev)
+    coeffs = stages.intt_rows(x)
+    got = lde(x, 3)
+    blocked = stages.lde_rows(coeffs, 3)
+    for s in range(0, rows_n, block):
+        c = cuda_ntt.transform_plain(x[s:s + block], 14, True)
+        same(coeffs[s:s + block], c, f"intt ({rows_n}, 2^14) rows {s}+")
+        c = torch.nn.functional.pad(c, (0, (1 << 17) - (1 << 14)))
+        want = cuda_ntt.transform_plain(c, 17, False, gl.GENERATOR)
+        same(got[s:s + block], want, f"lde ({rows_n}, 2^14) rows {s}+")
+        same(blocked[s:s + block], want, f"lde_rows ({rows_n}) rows {s}+")
+    del got, blocked, coeffs
+    torch.cuda.synchronize()
+    log(f"phase 1: intt ({rows_n}, 2^14) and lde to ({rows_n}, 2^17) at rate "
+        f"3, whole and in blocks of {block} rows, == plain "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # each kernel alone at the main paths' four-step shapes: the 2^24
+    # transform of the first slice and the header_range path's 2^17 coset
+    # LDE block; every step of each plan against its plain version
     S = cuda_ntt.S_BITS
+    alone = {}
+    for log_n, batch in ((24, 1), (17, block)):
+        x = random_field(rng, (batch, 1 << log_n), dev)
+        steps = cuda_ntt.plan(x, log_n, False, gl.GENERATOR, S)
+        cur = x
+        for i, (kind, *args) in enumerate(steps):
+            if kind == "k1":
+                out = cuda_ntt.ntt_rows(cur, *args)
+                same(out, cuda_ntt.ntt_rows_plain(cur, *args),
+                     f"ntt_rows_smem alone, 2^{log_n} step {i}")
+            else:
+                out = cuda_ntt.twiddle_transpose(cur, *args)
+                same(out, cuda_ntt.twiddle_transpose_plain(cur, *args),
+                     f"ntt_twiddle_transpose alone, 2^{log_n} step {i}")
+            alone.setdefault((log_n, kind), (cur, args))
+            cur = out
+        same(cur.reshape(x.shape),
+             cuda_ntt.transform_plain(x, log_n, False, gl.GENERATOR),
+             f"four-step 2^{log_n} chain")
+    log(f"phase 1: every K1/K2 step of the 2^24 and ({block}, 2^17) coset "
+        f"plans == its plain version")
+    # times at the 2^17 split: the first K1 (down the columns, with the
+    # coset) and the first K2, each against its plain version
+    (k1_in, k1_a), (k2_in, k2_a) = alone[(17, "k1")], alone[(17, "k2")]
+    t17 = [cuda_ms(lambda: cuda_ntt.ntt_rows(k1_in, *k1_a)),
+           cuda_ms(lambda: cuda_ntt.ntt_rows_plain(k1_in, *k1_a)),
+           cuda_ms(lambda: cuda_ntt.twiddle_transpose(k2_in, *k2_a)),
+           cuda_ms(lambda: cuda_ntt.twiddle_transpose_plain(k2_in, *k2_a))]
+    a, c = cuda_ntt.split(17)
+    log(f"phase 1: at ({block}, 2^17) = {block}·2^{c} columns of 2^{a}: "
+        f"ntt_rows_smem {t17[0]:.3f} ms, plain {t17[1]:.3f} ms; "
+        f"ntt_twiddle_transpose {t17[2]:.3f} ms, plain {t17[3]:.3f} ms  "
+        f"[{card}]")
+
+    # times at the 2^24 split: K1 on 2^12 contiguous rows of 2^12 against
+    # the plain stage-by-stage transform; K2 against its plain version
     a, c = cuda_ntt.split(24)
     R, C = 1 << a, 1 << c
-    x = random_field(rng, (1, 1 << 24), dev)
-    steps = cuda_ntt.plan(x, 24, False, gl.GENERATOR, S)
-    k1_args = steps[0][1:]                  # K1 down the columns, with coset
-    k2_args = steps[1][1:]                  # K2 with the w^(c·k1) twiddle
-    y1 = cuda_ntt.ntt_rows(x, *k1_args)
-    same(y1, cuda_ntt.ntt_rows_plain(x, *k1_args), "ntt_rows_smem alone")
-    y2 = cuda_ntt.twiddle_transpose(y1, *k2_args)
-    same(y2, cuda_ntt.twiddle_transpose_plain(y1, *k2_args),
-         "ntt_twiddle_transpose alone")
-    # times: K1 on 2^12 contiguous rows of 2^12 against the plain
-    # stage-by-stage transform; K2 against its plain version
+    x, _ = alone[(24, "k1")]
+    y1, k2_args = alone[(24, "k2")]
     rows = x.reshape(R, C)
     rows_args = (R, c, (1, 0, 1, C), ntt_mod.twiddles(c, False, dev), None,
                  (1, 0, 1), None, 1)
@@ -198,9 +270,12 @@ class StageTimer:
     def __init__(self):
         from vectorx_tpu_torch.hash import poseidon
         from vectorx_tpu_torch.stark import prover, stages
+        from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir
+        from vectorx_tpu_torch.stark.sha256_air import Sha256Air
 
         ntt_mod = importlib.import_module("vectorx_tpu_torch.ntt.ntt")
         self.targets = [
+            (Blake2bAir, "build_trace"), (Sha256Air, "build_trace"),
             (stages, "commit_rows"), (prover, "aux_witness"),
             (prover, "_composition"), (stages, "quotient_coeffs"),
             (stages, "deep_eval_groups"), (stages, "deep_compose"),
@@ -216,8 +291,10 @@ class StageTimer:
 
         for mod, attr in self.targets:
             orig = getattr(mod, attr)
+            # a class's method is named with its class (the trace builds)
+            name = f"{mod.__name__}.{attr}" if isinstance(mod, type) else attr
 
-            def wrapped(*a, _orig=orig, _name=attr, **kw):
+            def wrapped(*a, _orig=orig, _name=name, **kw):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = _orig(*a, **kw)
@@ -240,6 +317,26 @@ class StageTimer:
                          sorted(self.times.items(), key=lambda kv: -kv[1]))
 
 
+def reset_launches() -> None:
+    from vectorx_tpu_torch.ntt import cuda_ntt
+
+    for name in cuda_ntt.LAUNCHES:
+        cuda_ntt.LAUNCHES[name] = 0
+
+
+def read_launches(path: str) -> dict:
+    """The kernel launch counts since `reset_launches`; every kernel must
+    have launched on `path`."""
+    from vectorx_tpu_torch.ntt import cuda_ntt
+
+    counts = dict(cuda_ntt.LAUNCHES)
+    for name, count in counts.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{path} path")
+    return counts
+
+
 def prove_and_check(name, air, cfg, dev, card):
     import torch
 
@@ -251,15 +348,15 @@ def prove_and_check(name, air, cfg, dev, card):
 
     trace = air.build_trace()
     timer = StageTimer()
-    for run in ("cold", "warm", "warm, stage-timed"):
+    for run in ("cold", "warm, stage-timed"):
         before = sum(cuda_ntt.LAUNCHES.values())
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        if run == "warm, stage-timed":
+        if run == "cold":
+            proof = prove(air, trace, cfg, device=dev)
+        else:
             with timer:
                 proof = prove(air, trace, cfg, device=dev)
-        else:
-            proof = prove(air, trace, cfg, device=dev)
         torch.cuda.synchronize()
         t_prove = time.perf_counter() - t0
         grew = sum(cuda_ntt.LAUNCHES.values()) - before
@@ -290,6 +387,256 @@ def prove_and_check(name, air, cfg, dev, card):
                              f"accepted")
     log(f"phase 3: {name}: tampered opening and FRI final coefficient "
         f"rejected")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: byte hashes on the card
+# ---------------------------------------------------------------------------
+
+def phase_hashes(dev, card: str) -> None:
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from vectorx_tpu_torch.hash.blake2b import blake2b_batch
+    from vectorx_tpu_torch.hash.sha256 import sha256_batch
+    from vectorx_tpu_torch.merkle import (sha256_merkle_root,
+                                          sha256_merkle_root_device)
+
+    rng = np.random.default_rng(5)
+    count, max_len = 4096, 35840
+    lens = rng.integers(0, max_len + 1, size=count)
+    lens[:4] = (0, 1, 128, max_len)
+    buf = rng.integers(0, 256, size=(count, max_len), dtype=np.uint8)
+    t0 = time.perf_counter()
+    got = blake2b_batch(buf, lens, dev)
+    torch.cuda.synchronize()
+    t_b2 = time.perf_counter() - t0
+    for i in range(count):
+        want = hashlib.blake2b(buf[i, :lens[i]].tobytes(), digest_size=32)
+        if got[i].tobytes() != want.digest():
+            raise AssertionError(f"blake2b_batch row {i} (length {lens[i]})")
+    log(f"phase 5: blake2b_batch: {count} messages of 0-{max_len} B (mean "
+        f"{lens.mean():.0f} B) == hashlib, {t_b2:.3f} s  [{card}]")
+
+    t_sha = 0.0
+    for length in (0, 55, 56, 64, 119, 1000):
+        msgs = rng.integers(0, 256, size=(count, length), dtype=np.uint8)
+        t0 = time.perf_counter()
+        got = sha256_batch(msgs, dev)
+        torch.cuda.synchronize()
+        t_sha += time.perf_counter() - t0
+        for i in range(count):
+            if got[i].tobytes() != hashlib.sha256(msgs[i].tobytes()).digest():
+                raise AssertionError(f"sha256_batch length {length} row {i}")
+    log(f"phase 5: sha256_batch: {count} messages at each of 6 lengths "
+        f"(0-1000 B) == hashlib, {t_sha:.3f} s  [{card}]")
+
+    leaves = rng.integers(0, 256, size=(256, 32), dtype=np.uint8)
+    t0 = time.perf_counter()
+    root = sha256_merkle_root_device(leaves, dev)
+    t_root = time.perf_counter() - t0
+    if root != sha256_merkle_root([row.tobytes() for row in leaves]):
+        raise AssertionError("sha256_merkle_root_device != host root")
+    log(f"phase 5: sha256_merkle_root_device over 256 leaves == host root, "
+        f"{t_root:.3f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: batched ed25519 on the card
+# ---------------------------------------------------------------------------
+
+def phase_ed25519(dev, card: str) -> None:
+    import hashlib
+
+    import torch
+
+    from vectorx_tpu_torch.curves import ed25519 as host
+    from vectorx_tpu_torch.curves.ed25519_batch import batch_verify
+
+    n, n_signed = 300, 240
+    keys = [hashlib.sha256(b"chip-smoke" + i.to_bytes(4, "little")).digest()
+            for i in range(n)]
+    pks = [host.public_key(k) for k in keys]
+    msg = b"\x01" * 53
+    signed = set(random.Random(6).sample(range(n), n_signed))
+    mask = [i in signed for i in range(n)]
+    sigs = [host.sign(k, msg) if on else bytes(64)
+            for k, on in zip(keys, mask)]
+
+    def run(sig_list, device):
+        t0 = time.perf_counter()
+        ok = batch_verify(pks, [msg] * n, sig_list, mask,
+                          rng=random.Random(7), device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return ok, time.perf_counter() - t0
+
+    ok, t_dev = run(sigs, dev)
+    if not ok:
+        raise AssertionError("batch_verify rejected valid signatures")
+    forged = list(sigs)
+    victim = min(signed)
+    forged[victim] = host.sign(keys[victim], msg + b"!")
+    bad, t_bad = run(forged, dev)
+    if bad:
+        raise AssertionError("batch_verify accepted a forged signature")
+    ok_cpu, t_cpu = run(sigs, "cpu")
+    if ok_cpu != ok:
+        raise AssertionError("batch_verify: CUDA and CPU disagree")
+    log(f"phase 6: ed25519 batch_verify, {n} keys, {n_signed} signed: "
+        f"accepted in {t_dev:.3f} s, forged signature rejected in "
+        f"{t_bad:.3f} s; CPU agrees ({t_cpu:.3f} s on the host)  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the header_range statement at full size
+# ---------------------------------------------------------------------------
+
+def phase_header_range(dev, card: str) -> dict:
+    import torch
+
+    from vectorx_tpu_torch.circuits import (DummyHeaderRange,
+                                            HeaderRangeCircuit)
+    from vectorx_tpu_torch.circuits.zk_commitment import _sha_rows
+    from vectorx_tpu_torch.circuits.zk_header_range import (
+        _blake_rows, prove_header_range_zk, verify_header_range_zk)
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import HeaderRangeInput
+    from vectorx_tpu_torch.io.fixtures import FixtureChain
+    from vectorx_tpu_torch.stark import StarkConfig, prover
+    from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir
+    from vectorx_tpu_torch.stark.serialize import (proof_from_json,
+                                                   proof_to_json)
+
+    # the reference deployment's header_range_256 with 300 authorities and
+    # headers cycling through 100/10/60/25 % of a 2048 B bound
+    tree, auth, max_header = 256, 300, 35840
+    base, frac = 2048 - 180, (100, 10, 60, 25)
+    t0 = time.perf_counter()
+    chain = FixtureChain(seed=19, num_blocks=3 * tree + 2,
+                         epoch_length=2 * tree,
+                         authorities_per_era=lambda e: auth,
+                         extension_bytes=lambda b: base * frac[b % 4] // 100)
+    trusted, target = 2 * tree, 3 * tree
+    inp = HeaderRangeInput(trusted, chain.get_block_hash(trusted), 1,
+                           chained_hash(chain.era_pubkeys(1)),
+                           target).encode()
+    sizes = [len(chain.get_encoded_header(b))
+             for b in range(trusted + 1, target + 1)]
+    want = DummyHeaderRange(tree).run(inp, chain)
+    log(f"phase 7: fixture chain: blocks ({trusted}, {target}], headers "
+        f"{min(sizes)}-{max(sizes)} B ({sum(sizes)} B), {auth} authorities "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    t0 = time.perf_counter()
+    out = HeaderRangeCircuit(auth, max_header, tree).run(inp, chain,
+                                                         device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    if out != want:
+        raise AssertionError("HeaderRangeCircuit.run != DummyHeaderRange")
+    log(f"phase 7: HeaderRangeCircuit({auth}, {max_header}, {tree}).run == "
+        f"DummyHeaderRange output, {t_run:.3f} s  [{card}]")
+
+    cfg = StarkConfig(fri=FriConfig())
+    timer = StageTimer()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with timer:
+        proof = prove_header_range_zk(chain, inp, tree_size=tree,
+                                      max_authorities=auth, config=cfg,
+                                      device=dev)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    launches = read_launches("header_range")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if proof.output_bytes != want:
+        raise AssertionError("prove_header_range_zk output != "
+                             "DummyHeaderRange output")
+    b2_shapes, pos = [], 0
+    for sz in proof.header_chunk_sizes:
+        rows = sum(_blake_rows(h) for h in proof.headers[pos:pos + sz])
+        b2_shapes.append((sz, max(5, rows.bit_length())))
+        pos += sz
+    sha_shapes = [(sz, max(7, (sz * _sha_rows(bytes(64))).bit_length()))
+                  for sz in proof.sha_chunk_sizes]
+    first = proof.header_chunk_sizes[0]
+    big = Blake2bAir.statement(proof.headers[:first],
+                               proof.header_hashes[:first])
+    standing = prover._commit_cols(big) * (big.n << cfg.rate_bits) * 8
+    log(f"phase 7: prove_header_range_zk(tree_size={tree}, "
+        f"max_authorities={auth}, FriConfig()): prove {t_prove:.3f} s, peak "
+        f"device memory {peak / 2**30:.3f} GiB  [{card}]")
+    log(f"phase 7: {len(b2_shapes)} Blake2b chunk proofs (headers, log_n) "
+        f"{b2_shapes}; {len(sha_shapes)} SHA-256 chunk proofs (nodes, log_n) "
+        f"{sha_shapes}; largest chunk's standing LDE {standing / 2**30:.3f} "
+        f"GiB, peak / standing {peak / standing:.3f}  [{card}]")
+    log(f"phase 7: stage seconds (NTT and Poseidon run inside the stages; "
+        f"the trace builds are host numpy): {timer.summary()}  [{card}]")
+    log(f"phase 7: kernel launches on the header_range path: {launches}")
+
+    t0 = time.perf_counter()
+    ok = verify_header_range_zk(proof, tree, cfg, device=dev,
+                                rng=random.Random(8))
+    t_verify = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("verify_header_range_zk rejected the proof")
+    bad = dataclasses.replace(
+        proof, header_hashes=[bytes(32)] + list(proof.header_hashes[1:]))
+    if verify_header_range_zk(bad, tree, cfg, device=dev):
+        raise AssertionError("tampered header hash accepted")
+    sha0 = proof_from_json(proof_to_json(proof.sha_proofs[0]))
+    leaf = sha0.trace_openings[0].leaf
+    leaf[0] = (leaf[0] + 1) % gl.P
+    bad = dataclasses.replace(proof,
+                              sha_proofs=[sha0] + list(proof.sha_proofs[1:]))
+    if verify_header_range_zk(bad, tree, cfg, device=dev):
+        raise AssertionError("tampered SHA chunk proof accepted")
+    log(f"phase 7: verify_header_range_zk accepted in {t_verify:.3f} s; "
+        f"tampered header hash and tampered SHA chunk proof rejected  "
+        f"[{card}]")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: byte identity of the component proofs, CUDA against CPU
+# ---------------------------------------------------------------------------
+
+def phase_identity(dev, card: str) -> None:
+    from vectorx_tpu_torch.circuits.zk_header_range import \
+        prove_header_range_zk
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import HeaderRangeInput
+    from vectorx_tpu_torch.io.fixtures import FixtureChain
+    from vectorx_tpu_torch.stark import StarkConfig
+    from vectorx_tpu_torch.stark.serialize import proof_to_json
+
+    chain = FixtureChain(seed=19, num_blocks=12, epoch_length=6,
+                         authorities_per_era=lambda e: 4)
+    inp = HeaderRangeInput(7, chain.get_block_hash(7), 1,
+                           chained_hash(chain.era_pubkeys(1)), 9).encode()
+    cfg = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=0,
+                                    num_queries=12, final_poly_len=4,
+                                    pow_bits=0))
+    t0 = time.perf_counter()
+    proofs = [prove_header_range_zk(chain, inp, tree_size=2,
+                                    max_authorities=8, config=cfg,
+                                    device=device)
+              for device in (dev, "cpu")]
+    texts = [[json.dumps(proof_to_json(p))
+              for p in zk.header_proofs + zk.sha_proofs] for zk in proofs]
+    if texts[0] != texts[1]:
+        raise AssertionError("tree=2 header_range: CUDA and CPU component "
+                             "proofs differ")
+    log(f"phase 8: tree=2 header_range: {len(texts[0])} component proofs, "
+        f"JSON identical on CUDA and CPU ({sum(map(len, texts[0]))} bytes, "
+        f"{time.perf_counter() - t0:.2f} s)  [{card}]")
 
 
 def main() -> int:
@@ -330,23 +677,22 @@ def main() -> int:
     log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU "
         f"({time.perf_counter() - t0:.2f} s)")
 
+    # the prover path of the first slice, one step shallower than there
+    # (2^21 / 2^20 rows) so that the whole script fits its time limit
     cfg = StarkConfig(fri=FriConfig())
     rng = np.random.default_rng(0)
-    values = rng.integers(0, 1 << 16, size=(8, (1 << 20) - 1),
+    values = rng.integers(0, 1 << 16, size=(8, (1 << 19) - 1),
                           dtype=np.uint64)
-    statements = [("FibonacciAir(log_n=21)", FibonacciAir(log_n=21)),
-                  ("RangeCheckAir(log_n=20, bits=16, V=8)",
-                   RangeCheckAir(20, 16, values))]
-    for name in cuda_ntt.LAUNCHES:
-        cuda_ntt.LAUNCHES[name] = 0
+    statements = [("FibonacciAir(log_n=20)", FibonacciAir(log_n=20)),
+                  ("RangeCheckAir(log_n=19, bits=16, V=8)",
+                   RangeCheckAir(19, 16, values))]
+    t0 = time.perf_counter()
+    reset_launches()
     for name, air in statements:
         prove_and_check(name, air, cfg, dev, card)
-    launches = dict(cuda_ntt.LAUNCHES)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
-    log(f"phase 3: kernel launches on the main path: {launches}")
+    launches = read_launches("STARK prover")
+    log(f"phase 3: kernel launches on the STARK prover path: {launches} "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     small = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=1,
                                       num_queries=12, final_poly_len=4,
@@ -366,6 +712,15 @@ def main() -> int:
         log(f"phase 4: {name}: CUDA and CPU proof JSON identical "
             f"({len(a)} bytes, {time.perf_counter() - t0:.2f} s)")
 
+    phase_hashes(dev, card)
+    phase_ed25519(dev, card)
+    t0 = time.perf_counter()
+    hr_launches = phase_header_range(dev, card)
+    log(f"phase 7: {time.perf_counter() - t0:.2f} s")
+    phase_identity(dev, card)
+
+    for name in launches:
+        launches[name] += hr_launches[name]
     kernels = [
         {"name": "ntt_rows_smem", "route": "cuda",
          "source": "vectorx_tpu_torch/csrc/ntt.cu",

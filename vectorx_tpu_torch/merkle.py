@@ -7,15 +7,22 @@ leaves they are given.  The verifier's path checks are host code: the
 scalar `verify_path` walks with `poseidon_py`, and the batched walks run the
 port's own torch permutation on CPU tensors, one batched permutation per
 tree level across all queries.
+
+The SHA-256 byte trees of the header_range commitments sit at the end: the
+host root (hashlib) and the batched root, one `hash.sha256` compression
+pair per tree level, on an explicit device.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
 
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hash import poseidon, poseidon_py
+from vectorx_tpu_torch.hash import sha256 as sha
 
 # The verifier's batched walks are host computations by design.
 HOST = torch.device("cpu")
@@ -329,3 +336,38 @@ def verify_paths_multi(groups: list, indices: list, num_leaves: int) -> bool:
         if not np.all(digest[gi * q:(gi + 1) * q] == cap[slot]):
             return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# SHA-256 simple Merkle (byte-level, reference-compatible)
+# ---------------------------------------------------------------------------
+
+def sha256_merkle_root_device(leaves: np.ndarray, device) -> bytes:
+    """Batched `sha256_merkle_root` for power-of-two leaf counts: each tree
+    level is one batched SHA-256 over all sibling pairs, and the digests
+    stay on `device` between levels.  leaves: (n, 32) uint8."""
+    n = leaves.shape[0]
+    assert n & (n - 1) == 0 and n > 0
+    words = np.ascontiguousarray(leaves, dtype=np.uint8).view(">u4")
+    level = torch.from_numpy(words.astype(np.int64)).to(device)   # (n, 8)
+    while level.shape[0] > 1:
+        level = sha.hash_pairs_words(level)
+    return sha.digest_words_to_bytes(level)[0].tobytes()
+
+
+def sha256_merkle_root(leaves: list[bytes]) -> bytes:
+    """Simple Merkle root over 32-byte leaves, bit-exact with the reference
+    `RpcDataFetcher::get_merkle_root` (input/mod.rs:464-489): leaves are not
+    hashed, zero-extended to the next power of two, interior nodes are
+    SHA256(left || right).  Returns b"" for no leaves."""
+    if not leaves:
+        return b""
+    nodes = list(leaves)
+    while len(nodes) & (len(nodes) - 1):
+        nodes.append(b"\x00" * 32)
+    while len(nodes) > 1:
+        nodes = [
+            hashlib.sha256(nodes[2 * i] + nodes[2 * i + 1]).digest()
+            for i in range(len(nodes) // 2)
+        ]
+    return nodes[0]

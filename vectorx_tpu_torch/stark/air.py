@@ -38,6 +38,15 @@ class DeviceAlgebra:
         return v if isinstance(v, torch.Tensor) else int(v) % gl.P
 
 
+def bit_word(bits: torch.Tensor) -> torch.Tensor:
+    """Σ_i 2^i·bits[..., i, :] over the bit axis (-2) of stacked (..., k, N)
+    field elements (k ≤ 32): the device form of a word assembled from bit
+    columns."""
+    w = torch.tensor([1 << i for i in range(bits.shape[-2])],
+                     dtype=torch.int64, device=bits.device)[:, None]
+    return gl.field_sum(gl.mul(bits, w), -2)
+
+
 class ExtAlgebra:
     """Elements are (c0, c1) Python-int pairs in GF(p^2)."""
 

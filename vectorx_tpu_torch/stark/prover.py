@@ -7,9 +7,9 @@ transcript stays on the host and is identical to the verifier's.  All
 arithmetic is exact, so a proof's JSON equals the reference's for the same
 statement and config.
 
-Not ported yet: `prove_streamed` (when the reference would stream, the port
-raises `NotImplementedError`) and the LogUp memory bus (an AIR with bus
-ports raises `NotImplementedError`).
+Not ported yet: `prove_streamed` (a statement above the port's own
+streaming bound, `STREAM_THRESHOLD_ELEMS`, raises `NotImplementedError`) and
+the LogUp memory bus (an AIR with bus ports raises `NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -67,10 +67,29 @@ class StarkProof:
     aux_openings: list = field(default_factory=list)
 
 
-# The reference switches to its coset-streamed prover when the committed
-# LDE matrices would exceed this many elements; the port follows the same
-# rule and refuses such statements until `prove_streamed` is ported.
-STREAM_THRESHOLD_ELEMS = 1 << 28
+# Statements whose committed LDE matrices (trace + aux + constants +
+# quotient chunks, each over the blown-up domain) exceed this many elements
+# need the coset-streamed prover, which is not ported: the port refuses
+# them.  The reference streams above 2^28, a bound sized for a 16 GB TPU.
+# This one is sized for an 80 GB H100 from measurements (PERF.md): the
+# header_range path's largest statement, a 2^14-row Blake2bAir chunk at the
+# production FriConfig() (2853 columns x 2^17 points, 3.7e8 elements, 2.79
+# GiB standing), peaked at 9.54 GiB alone and at 10.76 GiB across the whole
+# tree-256 statement, 3.43-3.86x its standing LDE bytes, on an NVIDIA H100
+# 80GB HBM3 (700 W power limit).  Narrow, long statements on the same card:
+# FibonacciAir(23) (4 columns x 2^26 points, the NTT's largest domain, half
+# the bound) peaked at 30.6 GiB allocated / 41.4 GiB reserved by the
+# caching allocator, RangeCheckAir(22, 16, V=2) (12 columns x 2^25 points,
+# 0.75 of the bound) at 30.2 / 41.0 GiB.  At 2^29 elements a wide statement
+# peaks near 3.86 x 4 GiB = 15 GiB; the corner, 8 columns x 2^26 points,
+# near FibonacciAir(23) plus 4 columns at 31-60 B per element (the Blake2b
+# chunk's and RangeCheck's marginal costs): 38-46 GiB allocated, 52-62 GiB
+# reserved, under 80 GB with headroom.  2^30 would put it at 54-76 GiB
+# allocated, with none.
+STREAM_THRESHOLD_ELEMS = 1 << 29
+# Points per block of the composition (`composition_block`): the block's
+# committed rows times its points stay under this many elements.
+COMPOSITION_BLOCK_ELEMS = 1 << 27
 
 
 def _num_quotient_chunks(air: Air) -> int:
@@ -93,8 +112,9 @@ def _refuse_streaming(air: Air, config: StarkConfig) -> None:
         raise NotImplementedError(
             f"{type(air).__name__}(log_n={air.log_n}) commits "
             f"{_commit_cols(air)} columns x 2^{air.log_n + config.rate_bits}"
-            f" points, above STREAM_THRESHOLD_ELEMS = 2^28: the reference "
-            f"proves it with prove_streamed, which is not ported yet")
+            f" points, above STREAM_THRESHOLD_ELEMS = "
+            f"2^{STREAM_THRESHOLD_ELEMS.bit_length() - 1}: it needs "
+            f"prove_streamed, which is not ported yet")
 
 
 def preprocess(air: Air, config: StarkConfig, consts_u64=None, *, device):
@@ -157,40 +177,86 @@ def aux_witness(air: Air, tr: torch.Tensor, consts: torch.Tensor,
 # Constraint composition
 # ---------------------------------------------------------------------------
 
+def _window(m: torch.Tensor, s: int, e: int) -> torch.Tensor:
+    """Columns [s, e) of the (R, N) matrix m, wrapping around past N."""
+    N = m.shape[1]
+    if e <= N:
+        return m[:, s:e]
+    return torch.cat([m[:, s:], m[:, :e - N]], dim=1)
+
+
+def composition_block(rows: int, N: int) -> int:
+    """Points per block of the composition: the largest power of two with
+    rows · block ≤ COMPOSITION_BLOCK_ELEMS (at least 1024, at most N)."""
+    block = 1 << max(0, (COMPOSITION_BLOCK_ELEMS // max(1, rows))
+                     .bit_length() - 1)
+    return max(min(block, N), min(1024, N))
+
+
+def _transition_sums(air, public, blowup, tr, ax, cl, betas, powers, s, e):
+    """(Σ_i α^i·T_i(x), number of constraints) over LDE points [s, e): the
+    transition constraints of one block, "next row" read `blowup` points
+    ahead.  `powers(k)` returns [α^0 .. α^(k-1)]."""
+    blk = _window(tr, s, e)
+    blk_n = _window(tr, s + blowup, e + blowup)
+    local = list(blk.unbind(0))
+    nxt = list(blk_n.unbind(0))
+    consts = list(_window(cl, s, e).unbind(0)) if cl.shape[0] else None
+    tvals = list(air.transition(DeviceAlgebra, local, nxt, public, consts))
+    lookups = air.lookups()
+    if lookups:
+        tvals += lookup_transitions(
+            DeviceAlgebra, local, nxt, list(_window(ax, s, e).unbind(0)),
+            list(_window(ax, s + blowup, e + blowup).unbind(0)), consts,
+            betas, lookups)
+    del local, nxt, blk, blk_n
+    n_trans = len(tvals)
+    ap = powers(n_trans)
+    chunk = max(1, min(n_trans, stages.SUM_CHUNK_ELEMS // (e - s)))
+    zero = torch.zeros(e - s, dtype=torch.int64, device=tr.device)
+    acc = (zero, zero)
+    for i in range(0, n_trans, chunk):
+        j = min(i + chunk, n_trans)
+        acc = ge.add(acc, stages.weighted_sum(torch.stack(tvals[i:j]),
+                                              ap[i:j]))
+        tvals[i:j] = [None] * (j - i)   # free consumed buffers promptly
+    return acc, n_trans
+
+
 def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
                  alpha, betas, x, zh):
     """acc(x) = Σ_i α^i·T_i(x)·(x−x_last) + Σ_b α^{t+b}·B_b(x)·Z_H(x)/(x−x_b)
-    over the LDE domain, as an ext pair (c0, c1) of (N,) tensors."""
-    W, N = tr.shape
-    K = cl.shape[0]
-    dev = tr.device
-    lookups = air.lookups()
-    local = [tr[j] for j in range(W)]
-    nxt = [torch.roll(tr[j], -blowup) for j in range(W)]
-    consts = [cl[k] for k in range(K)] if K else None
-    tvals = list(air.transition(DeviceAlgebra, local, nxt, public, consts))
-    if lookups:
-        aux_local = [ax[a] for a in range(ax.shape[0])]
-        aux_nxt = [torch.roll(ax[a], -blowup) for a in range(ax.shape[0])]
-        tvals += lookup_transitions(DeviceAlgebra, local, nxt, aux_local,
-                                    aux_nxt, consts, betas, lookups)
-    n_trans = len(tvals)
-    n_bnd = len(boundaries)
-    ap = [ext_py.ONE]
-    for _ in range(n_trans + n_bnd - 1):
-        ap.append(ext_py.mul(ap[-1], alpha))
+    over the LDE domain, as an ext pair (c0, c1) of (N,) tensors.
 
-    acc = (torch.zeros(N, dtype=torch.int64, device=dev),
-           torch.zeros(N, dtype=torch.int64, device=dev))
-    xm = gl.sub(x, x_last)
-    chunk = max(1, min(n_trans, stages.SUM_CHUNK_ELEMS // max(1, N)))
-    for s in range(0, n_trans, chunk):
-        e = min(s + chunk, n_trans)
-        ts = gl.mul(torch.stack(tvals[s:e]), xm[None])
-        acc = ge.add(acc, stages.weighted_sum(ts, ap[s:e]))
-        tvals[s:e] = [None] * (e - s)   # free consumed buffers promptly
+    The transition constraints are evaluated in blocks of consecutive LDE
+    points (`composition_block`): a point's constraints read only its own
+    column and the one `blowup` ahead, so the blocks concatenate to the
+    whole-domain result while a wide AIR's stacked temporaries stay bounded.
+    """
+    W, N = tr.shape
+    dev = tr.device
+    ap = [ext_py.ONE]
+
+    def powers(k):
+        while len(ap) < k:
+            ap.append(ext_py.mul(ap[-1], alpha))
+        return ap[:k]
+
+    block = composition_block(W + ax.shape[0] + cl.shape[0], N)
+    parts0, parts1 = [], []
+    n_trans = 0
+    for s in range(0, N, block):
+        e = min(s + block, N)
+        (t0, t1), n_trans = _transition_sums(air, public, blowup, tr, ax, cl,
+                                             betas, powers, s, e)
+        xm = gl.sub(x[s:e], x_last)
+        parts0.append(gl.mul(t0, xm))
+        parts1.append(gl.mul(t1, xm))
+    acc = (torch.cat(parts0), torch.cat(parts1))
+    del parts0, parts1
 
     if boundaries:
+        n_bnd = len(boundaries)
         # 1/(x − x_row) once per unique row, then the boundary axis chunked
         w = _root_of_unity(air.log_n, inverse=False)
         rows = [row for (row, _c, _v) in boundaries]
@@ -199,7 +265,7 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
         xr = stages.const_column([pow(w, r, P) for r in uniq], dev)
         dinv = gl.inv(gl.sub(x[None, :], xr))
         vals = stages.const_column([v for (_r, _c, v) in boundaries], dev)
-        apb = ap[n_trans:]
+        apb = powers(n_trans + n_bnd)[n_trans:]
         cb = max(1, stages.SUM_CHUNK_ELEMS // max(1, N))
         for s in range(0, n_bnd, cb):
             e = min(s + cb, n_bnd)
