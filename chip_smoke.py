@@ -11,11 +11,16 @@ so the script exits non-zero and prints no final line:
 1. kernels against their plain torch versions on the card: the whole
    transform (forward, inverse, coset, LDE, round trip) at log_n in
    {1, 2, 5, 10, 13, 14, 16, 17, 20, 23, 24} with batches, leading dims
-   and non-canonical inputs; the header_range path's own transforms (a
-   Blake2b chunk's 2664-row trace iNTT at 2^14 and its coset LDE to 2^17,
-   whole and in the prover's row blocks); each kernel alone at every step
-   of the 2^24 and (512, 2^17) four-step plans, timed at both splits; and
-   median times at (8, 2^20), (4, 2^23), (1, 2^24).
+   and non-canonical inputs; every pair of u64 edge values and rows of
+   edge values; the header_range path's own transforms (a Blake2b chunk's
+   2664-row trace iNTT at 2^14 and its coset LDE to 2^17, whole and in the
+   prover's row blocks); each kernel alone at every step of the 2^24, the
+   (512, 2^17) coset and the (2664, 2^14) inverse plans; then median times
+   of each step and of the whole transforms at (8, 2^20), (4, 2^23),
+   (1, 2^24), (2664, 2^14) and (512, 2^17), each beside its bound (bytes
+   or integer multiply-adds, at the SM clock read under load), its share
+   of the bound, its plain version and the time recorded for the first
+   version of the kernels.
 2. the `entry()` twin on CUDA and on CPU: equal Merkle roots.
 3. the STARK prover path at the production FRI config (`FriConfig()`:
    rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=20) and
@@ -106,12 +111,69 @@ def random_field(rng, shape, device):
     return gl.from_u64(x.reshape(shape), device)
 
 
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
+# memory at 3.35 TB/s; 32-bit integer multiply-adds on 64 lanes per SM per
+# clock, 132 SMs, at the SM clock that nvidia-smi reads under load.
+HBM_BYTES_PER_S = 3.35e12
+SMS, INT_LANES = 132, 64
+# a Goldilocks product: four 32x32->64 partial products, each two 32-bit
+# multiply-adds (low and high word); its reduction and the butterfly's
+# modular add and subtract take no multiply
+GL_MUL_MADS = 8
+
+
+def k1_mads(batch, C, log_n, col, tw, pre, post, twiddle, scale) -> int:
+    """The 32-bit multiply-adds one K1 step needs: per column of length n,
+    n/2·log2(n) - (n - 1) butterflies with a twiddle other than 1, plus
+    one product per element for the coset power on load and one for the
+    power or scale on store."""
+    n = 1 << log_n
+    products = (n * log_n) // 2 - n + 1
+    products += n * ((pre is not None) + (post is not None or scale != 1))
+    return GL_MUL_MADS * batch * C * products
+
+
+def bound_ms(nbytes: int, mads: int, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and multiply-adds over the integer issue rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = mads / (SMS * INT_LANES * clock_mhz * 1e6) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sm_clock_mhz(fn, reps: int) -> float:
+    """The SM clock nvidia-smi reads while `reps` queued calls of `fn` keep
+    the card busy."""
+    import torch
+
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    return float(out.stdout.strip().splitlines()[0])
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 SIZES = (1, 2, 5, 10, 13, 14, 16, 17, 20, 23, 24)
 TIMED = ((8, 20), (4, 23), (1, 24))
+# The first version of the kernels (K1 `ntt_rows_smem`, one element per
+# thread and a barrier per radix-2 stage; K2 `ntt_twiddle_transpose`, which
+# then also multiplied by the four-step twiddles): its recorded times at the
+# same shapes on NVIDIA H100 80GB HBM3 at 700 W, one per run (PERF.md)
+FIRST_MS = {
+    "K1 (512, 2^17) column step": "1.596 / 1.683 ms",
+    "K1 2^12 rows x 2^12": "0.498 / 0.530 / 0.502 / 0.491 ms",
+    "K2 (512, 2^17)": "0.420 / 0.427 ms (twiddled)",
+    "K2 2^12 x 2^12": "0.131 / 0.133 / 0.121 / 0.139 ms (twiddled)",
+    "NTT (8, 2^20)": "0.642 / 0.593 / 0.618 / 0.592 ms",
+    "NTT (4, 2^23)": "2.400 / 2.442 / 2.576 / 2.429 ms",
+    "NTT (1, 2^24)": "1.274 / 1.328 / 1.312 / 1.316 ms",
+}
 
 
 def phase_kernels(dev, card: str) -> dict:
@@ -122,8 +184,6 @@ def phase_kernels(dev, card: str) -> dict:
     from vectorx_tpu_torch.ntt import (coset_intt, coset_ntt, cuda_ntt, intt,
                                        lde, ntt)
     from vectorx_tpu_torch.stark import blake2b_air, stages
-
-    ntt_mod = importlib.import_module("vectorx_tpu_torch.ntt.ntt")
 
     rng = np.random.default_rng(1)
     worst = 0
@@ -158,6 +218,24 @@ def phase_kernels(dev, card: str) -> dict:
         log(f"phase 1: transform log_n={log_n} {shapes} fwd/inv/coset "
             f"== plain, round trips ok ({time.perf_counter() - t0:.2f} s)")
 
+    # the kernels' carry chains at the edges of u64: every pair of edge
+    # values as a length-2 transform (its add and subtract), and rows made
+    # only of edge values through the coset, twiddle and scale products
+    e = np.array([0, 1, 2, 2**32 - 1, 2**32, gl.P - 1, gl.P, gl.P + 1, 2**63,
+                  2**64 - 2**32, 2**64 - 2**32 - 1, 2**64 - 2**33, 2**33,
+                  2**64 - 2, 2**64 - 1], dtype=np.uint64)
+    pairs = gl.from_u64(np.stack(np.meshgrid(e, e), -1).reshape(-1, 2), dev)
+    for log_n, x in ((1, pairs),
+                     (8, gl.from_u64(rng.choice(e, (7, 1 << 8)), dev)),
+                     (14, gl.from_u64(rng.choice(e, (3, 1 << 14)), dev))):
+        for inverse in (False, True):
+            for shift in (None, gl.GENERATOR):
+                same(cuda_ntt.transform(x, log_n, inverse, shift),
+                     cuda_ntt.transform_plain(x, log_n, inverse, shift),
+                     f"edge values log_n={log_n} inv={inverse} shift={shift}")
+    log(f"phase 1: edge values of u64 (all {len(e)}^2 pairs at log_n 1, "
+        f"edge-only rows at 2^8 and 2^14) fwd/inv/coset == plain")
+
     for log_n, rate in ((10, 3), (16, 3), (21, 3)):
         x = random_field(rng, (2, 1 << log_n), dev)
         got = lde(x, rate)
@@ -190,72 +268,98 @@ def phase_kernels(dev, card: str) -> dict:
         f"3, whole and in blocks of {block} rows, == plain "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    # each kernel alone at the main paths' four-step shapes: the 2^24
-    # transform of the first slice and the header_range path's 2^17 coset
-    # LDE block; every step of each plan against its plain version
+    # each kernel alone at every step of the main paths' four-step plans:
+    # the first slice's 2^24 transform, the header_range path's (512, 2^17)
+    # coset LDE block and its (2664, 2^14) trace iNTT
     S = cuda_ntt.S_BITS
-    alone = {}
-    for log_n, batch in ((24, 1), (17, block)):
+    plans = {"2^24": (1, 24, False, gl.GENERATOR),
+             "lde": (block, 17, False, gl.GENERATOR),
+             "intt": (rows_n, 14, True, None)}
+    steps_in, plan_inputs = {}, {}
+    for key, (batch, log_n, inverse, shift) in plans.items():
         x = random_field(rng, (batch, 1 << log_n), dev)
-        steps = cuda_ntt.plan(x, log_n, False, gl.GENERATOR, S)
         cur = x
-        for i, (kind, *args) in enumerate(steps):
+        for i, (kind, *args) in enumerate(
+                cuda_ntt.plan(x, log_n, inverse, shift, S)):
             if kind == "k1":
-                out = cuda_ntt.ntt_rows(cur, *args)
-                same(out, cuda_ntt.ntt_rows_plain(cur, *args),
-                     f"ntt_rows_smem alone, 2^{log_n} step {i}")
+                out = cuda_ntt.ntt_tile(cur, *args)
+                same(out, cuda_ntt.ntt_tile_plain(cur, *args),
+                     f"ntt_tile alone, {key} step {i}")
             else:
-                out = cuda_ntt.twiddle_transpose(cur, *args)
-                same(out, cuda_ntt.twiddle_transpose_plain(cur, *args),
-                     f"ntt_twiddle_transpose alone, 2^{log_n} step {i}")
-            alone.setdefault((log_n, kind), (cur, args))
+                out = cuda_ntt.transpose(cur, *args)
+                same(out, cuda_ntt.transpose_plain(cur, *args),
+                     f"ntt_transpose alone, {key} step {i}")
+            steps_in[key, i] = (kind, cur, args)
             cur = out
         same(cur.reshape(x.shape),
-             cuda_ntt.transform_plain(x, log_n, False, gl.GENERATOR),
-             f"four-step 2^{log_n} chain")
+             cuda_ntt.transform_plain(x, log_n, inverse, shift),
+             f"four-step {key} chain")
+        plan_inputs[key] = (x, log_n, inverse, shift)
     log(f"phase 1: every K1/K2 step of the 2^24 and ({block}, 2^17) coset "
-        f"plans == its plain version")
-    # times at the 2^17 split: the first K1 (down the columns, with the
-    # coset) and the first K2, each against its plain version
-    (k1_in, k1_a), (k2_in, k2_a) = alone[(17, "k1")], alone[(17, "k2")]
-    t17 = [cuda_ms(lambda: cuda_ntt.ntt_rows(k1_in, *k1_a)),
-           cuda_ms(lambda: cuda_ntt.ntt_rows_plain(k1_in, *k1_a)),
-           cuda_ms(lambda: cuda_ntt.twiddle_transpose(k2_in, *k2_a)),
-           cuda_ms(lambda: cuda_ntt.twiddle_transpose_plain(k2_in, *k2_a))]
-    a, c = cuda_ntt.split(17)
-    log(f"phase 1: at ({block}, 2^17) = {block}·2^{c} columns of 2^{a}: "
-        f"ntt_rows_smem {t17[0]:.3f} ms, plain {t17[1]:.3f} ms; "
-        f"ntt_twiddle_transpose {t17[2]:.3f} ms, plain {t17[3]:.3f} ms  "
-        f"[{card}]")
+        f"plans and of the ({rows_n}, 2^14) iNTT plan == its plain version")
 
-    # times at the 2^24 split: K1 on 2^12 contiguous rows of 2^12 against
-    # the plain stage-by-stage transform; K2 against its plain version
-    a, c = cuda_ntt.split(24)
-    R, C = 1 << a, 1 << c
-    x, _ = alone[(24, "k1")]
-    y1, k2_args = alone[(24, "k2")]
-    rows = x.reshape(R, C)
-    rows_args = (R, c, (1, 0, 1, C), ntt_mod.twiddles(c, False, dev), None,
-                 (1, 0, 1), None, 1)
-    same(cuda_ntt.ntt_rows(rows, *rows_args),
-         cuda_ntt.transform_plain(rows, c, False), "ntt_rows_smem rows")
-    k1_ms = cuda_ms(lambda: cuda_ntt.ntt_rows(rows, *rows_args))
-    k1_plain = cuda_ms(lambda: cuda_ntt.transform_plain(rows, c, False))
-    k2_ms = cuda_ms(lambda: cuda_ntt.twiddle_transpose(y1, *k2_args))
-    k2_plain = cuda_ms(lambda: cuda_ntt.twiddle_transpose_plain(y1, *k2_args))
-    log(f"phase 1: ntt_rows_smem (2^{a} rows x 2^{c}) {k1_ms:.3f} ms, plain "
-        f"{k1_plain:.3f} ms; ntt_twiddle_transpose (2^{a} x 2^{c}) "
-        f"{k2_ms:.3f} ms, plain {k2_plain:.3f} ms  [{card}]")
+    # times at the main paths' shapes, each beside its bound, its plain
+    # version and the first version's recorded time
+    x24 = plan_inputs["2^24"][0]
+    clock = sm_clock_mhz(lambda: cuda_ntt.transform(x24, 24, False), 600)
+    log(f"phase 1: SM clock under load {clock:.0f} MHz; bounds: bytes at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, operations at {SMS} SMs x "
+        f"{INT_LANES} lanes x the clock, {GL_MUL_MADS} multiply-adds per "
+        f"Goldilocks product, one product per butterfly  [{card}]")
+    timed = {}
 
-    for b, log_n in TIMED:
-        x = random_field(rng, (b, 1 << log_n), dev)
-        kms = cuda_ms(lambda: cuda_ntt.transform(x, log_n, False))
-        pms = cuda_ms(lambda: cuda_ntt.transform_plain(x, log_n, False), 3)
-        log(f"phase 1: NTT ({b}, 2^{log_n}) kernels {kms:.3f} ms, plain "
-            f"{pms:.3f} ms, speedup {pms / kms:.2f}x  [{card}]")
+    def report(label, fn, plain, nbytes, mads, library=None):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, 3)
+        lib_ms = cuda_ms(library) if library is not None else None
+        b_ms, by = bound_ms(nbytes, mads, clock)
+        other = (f"operations {mads / (SMS * INT_LANES * clock * 1e6) * 1e3:.4f}"
+                 if by == "bytes" else
+                 f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}")
+        lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
+        log(f"phase 1: {label}: {ms:.4f} ms; bound {b_ms:.4f} ms ({by}; "
+            f"{other} ms), share {b_ms / ms * 100:.1f} %; plain "
+            f"{plain_ms:.3f} ms{lib}; first version: "
+            f"{FIRST_MS.get(label, 'not recorded')}"
+            f"  [{card}]")
+        timed[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": by, "library_ms": lib_ms}
+
+    def step(label, key, i):
+        kind, src, args = steps_in[key, i]
+        if kind == "k1":
+            report(label, lambda: cuda_ntt.ntt_tile(src, *args),
+                   lambda: cuda_ntt.ntt_tile_plain(src, *args),
+                   16 * src.numel(), k1_mads(*args))
+        else:
+            b, R, C = args
+            report(label, lambda: cuda_ntt.transpose(src, *args),
+                   lambda: cuda_ntt.transpose_plain(src, *args),
+                   16 * src.numel(), 0,
+                   library=lambda: src.reshape(b, R, C).transpose(1, 2)
+                   .contiguous())
+
+    step("K1 (512, 2^17) column step", "lde", 0)
+    step("K1 (512, 2^17) row step", "lde", 1)
+    step("K2 (512, 2^17)", "lde", 2)
+    step("K1 2^12 x 2^12 column step", "2^24", 0)
+    step("K1 2^12 rows x 2^12", "2^24", 1)
+    step("K2 2^12 x 2^12", "2^24", 2)
+    step(f"K1 ({rows_n}, 2^14) iNTT column step", "intt", 0)
+    step(f"K1 ({rows_n}, 2^14) iNTT row step", "intt", 1)
+
+    whole = [(f"NTT ({b}, 2^{log_n})", random_field(rng, (b, 1 << log_n), dev),
+              log_n, False, None) for b, log_n in TIMED]
+    whole.append((f"iNTT ({rows_n}, 2^14)",) + plan_inputs["intt"])
+    whole.append((f"coset LDE block ({block}, 2^17)",) + plan_inputs["lde"])
+    for label, x, log_n, inverse, shift in whole:
+        mads = sum(k1_mads(*st[1:]) for st in
+                   cuda_ntt.plan(x, log_n, inverse, shift, S) if st[0] == "k1")
+        report(label, lambda: cuda_ntt.transform(x, log_n, inverse, shift),
+               lambda: cuda_ntt.transform_plain(x, log_n, inverse, shift),
+               16 * x.numel(), mads)
     torch.cuda.synchronize()
-    return {"worst": worst, "k1_ms": k1_ms, "k1_plain": k1_plain,
-            "k2_ms": k2_ms, "k2_plain": k2_plain}
+    return {"worst": worst, "timed": timed}
 
 
 # ---------------------------------------------------------------------------
@@ -664,8 +768,14 @@ def main() -> int:
     log(f"phase 0: kernels built from vectorx_tpu_torch/csrc in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {cuda_ntt.BUILD_INFO['seconds']:.2f} s)")
     for line in cuda_ntt.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"phase 0: ptxas: {line.strip()}")
+    lib = cuda_ntt.load()
+    log("phase 0: ntt_tile<log_n> dynamic shared memory per block (rows / "
+        "columns): " + ", ".join(
+            f"{n}: {lib.vx_ntt_tile_smem(n, 0) // 1024} / "
+            f"{lib.vx_ntt_tile_smem(n, 1) // 1024} KB"
+            for n in range(cuda_ntt.S_BITS + 1)))
 
     k = phase_kernels(dev, card)
 
@@ -721,18 +831,20 @@ def main() -> int:
 
     for name in launches:
         launches[name] += hr_launches[name]
+    # each kernel at the header_range path's (512, 2^17) coset LDE block,
+    # the main path's largest: K1's column step, K2's transpose
+    t1 = k["timed"]["K1 (512, 2^17) column step"]
+    t2 = k["timed"]["K2 (512, 2^17)"]
     kernels = [
-        {"name": "ntt_rows_smem", "route": "cuda",
+        {"name": "ntt_tile", "route": "cuda",
          "source": "vectorx_tpu_torch/csrc/ntt.cu",
          "replaces": "vectorx_tpu/ntt/pallas_ntt.py:159",
-         "launches": launches["ntt_rows_smem"], "max_abs_err": k["worst"],
-         "ms": k["k1_ms"], "plain_ms": k["k1_plain"]},
-        {"name": "ntt_twiddle_transpose", "route": "cuda",
+         "launches": launches["ntt_tile"], "max_abs_err": k["worst"], **t1},
+        {"name": "ntt_transpose", "route": "cuda",
          "source": "vectorx_tpu_torch/csrc/ntt.cu",
-         "replaces": "vectorx_tpu/ntt/pallas_ntt.py:273",
-         "launches": launches["ntt_twiddle_transpose"],
-         "max_abs_err": k["worst"], "ms": k["k2_ms"],
-         "plain_ms": k["k2_plain"]},
+         "replaces": "vectorx_tpu/ntt/pallas_ntt.py:274",
+         "launches": launches["ntt_transpose"], "max_abs_err": k["worst"],
+         **t2},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

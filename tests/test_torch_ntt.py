@@ -5,9 +5,12 @@
   kernel in interpret mode where it runs (as `tests/test_pallas_ntt.py`
   calls it).
 * The CUDA kernels cannot run here, so their algorithm is held instead: a
-  torch emulation with the kernels' split, stage order and tables
+  torch emulation with the kernels' split, steps, stage order and tables
   (`cuda_ntt.emulate`), with the split shrunk to tiny S so the four-step
-  path runs at small sizes, against the plain transform.
+  path runs at small sizes, against the plain transform and the Pallas
+  four-step in interpret mode; and each K1 step's plain version (strided
+  and contiguous columns, coset powers on load, the four-step twiddle or a
+  coset power and n^-1 on store) against the JAX transform of its columns.
 * The kernels themselves run only on the card: `chip_smoke.py` holds them
   against their plain versions there.
 
@@ -101,6 +104,86 @@ def test_kernel_algorithm_emulation_matches_plain(log_n, s_bits):
             assert np.array_equal(tgl.to_u64(got), tgl.to_u64(want))
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_algorithm_emulation_matches_pallas_interpret(inverse):
+    """The four-step at S = 5 (halves of 5 + 5 bits) against the Pallas
+    four-step `transform_big`, interpret mode, at its smallest size."""
+    log_n = 10
+    x = _vals(70 + inverse, (2, 1 << log_n))
+    want = jgl.to_u64(*pallas_ntt.transform_big(*jgl.from_u64(x), log_n,
+                                                inverse, True))
+    got = cuda_ntt.emulate(tgl.from_u64(x, "cpu"), log_n, inverse, None, 5)
+    assert np.array_equal(tgl.to_u64(got), want)
+
+
+def test_four_step_plan_is_three_passes():
+    """K1 down the columns with the twiddle on its store, K1 along the
+    rows with the coset^-1 power and n^-1 on its store, one plain K2."""
+    x = tgl.from_u64(_vals(80, (3, 1 << 6)), "cpu")
+    steps = cuda_ntt.plan(x, 6, True, tgl.GENERATOR, 3)
+    assert [st[0] for st in steps] == ["k1", "k1", "k2"]
+    (_, b0, c0, a0, col0, _, pre0, post0, tw0, sc0), \
+        (_, b1, c1, a1, col1, _, pre1, post1, tw1, sc1), k2 = steps
+    assert (b0, c0, a0, col0, pre0, tw0, sc0) == (3, 8, 3, True, None, True, 1)
+    assert (b1, c1, a1, col1, pre1, tw1) == (3, 8, 3, False, None, False)
+    assert post0 is not None and post1 is not None
+    assert sc1 == pow(1 << 6, P - 2, P) and k2 == ("k2", 3, 8, 8)
+
+
+def _powers(base, e):
+    return np.vectorize(lambda k: pow(base, int(k), P), otypes=[object])(e)
+
+
+# (batch, C, log_n, col, inverse, pre, post, twiddle, scale): the four-step's
+# first step (strided columns, coset on load, twiddle on store, C below a
+# tile's 8 columns), its second step (rows, coset^-1 and n^-1 on store), a
+# single K1 on rows with the coset, and plain strided inverse columns
+K1_STEPS = [
+    (2, 4, 3, True, False, 7, "twiddle", True, 1),
+    (2, 4, 3, False, True, None, "coset", False, "n^-1"),
+    (3, 1, 4, False, False, 7, None, False, 1),
+    (1, 2, 4, True, True, None, None, False, 1),
+]
+
+
+@pytest.mark.parametrize("batch,C,log_n,col,inverse,pre,post,twiddle,scale",
+                         K1_STEPS)
+def test_k1_step_plain_matches_jax(batch, C, log_n, col, inverse, pre, post,
+                                   twiddle, scale):
+    """`ntt_tile_plain` (the K1 step the kernel is held against on the
+    card) against the JAX transform of its columns with the powers on
+    load and store computed in Python integers."""
+    n = 1 << log_n
+    lg = (C * n).bit_length() - 1             # exponents stay below C·n
+    x = _vals(90 + log_n + C, (batch, C * n))
+    tw = tntt.twiddles(log_n, inverse, "cpu")
+    base = {"twiddle": tntt._root_of_unity(lg, inverse),
+            "coset": pow(tgl.GENERATOR, P - 2, P), None: None}[post]
+    scale = pow(n, P - 2, P) if scale == "n^-1" else scale
+    tables = [None if b is None else cuda_ntt.pow_tables(b, lg, "cpu")
+              for b in (pre, base)]
+    got = tgl.to_u64(cuda_ntt.ntt_tile_plain(
+        tgl.from_u64(x, "cpu"), batch, C, log_n, col, tw, tables[0],
+        tables[1], twiddle, scale)).reshape(batch, -1)
+
+    cols = (x.reshape(batch, n, C).transpose(0, 2, 1) if col
+            else x.reshape(batch, C, n)).astype(object) % P
+    c = np.arange(C)[:, None]
+    i = np.arange(n)[None, :]
+    if pre is not None:
+        cols = cols * _powers(pre, c + C * i) % P
+    jl, jh = jgl.from_u64(cols.astype(np.uint64))
+    cols = jgl.to_u64(*jntt._transform_xla(jl, jh, log_n, inverse)).astype(
+        object)
+    if inverse:   # the step's stages leave n^-1 out: its `scale` applies it
+        cols = cols * n % P
+    if base is not None:
+        cols = cols * _powers(base, c * i if twiddle else c + C * i) % P
+    cols = cols * scale % P
+    want = (cols.transpose(0, 2, 1) if col else cols).reshape(batch, -1)
+    assert np.array_equal(got, want.astype(np.uint64))
+
+
 def test_kernel_algorithm_emulation_at_real_split():
     """The real S = 13 split shape (K1 only) and a four-step at S = 6
     for log_n = 12, the largest size here."""
@@ -113,5 +196,41 @@ def test_kernel_algorithm_emulation_at_real_split():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = tgl.from_u64(_vals(60, (1, 8)), "cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="CUDA tensors only"):
         cuda_ntt.transform(x, 3, False)
+    tw = tntt.twiddles(3, False, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cuda_ntt.ntt_tile(x, 1, 1, 3, False, tw, None, None, False, 1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cuda_ntt.transpose(x, 1, 2, 4)
+
+
+def _refused(case):
+    x = torch.zeros(32, dtype=torch.int64)
+    if case == "dtype":
+        cuda_ntt.transform(x.to(torch.int32), 5, False)
+    elif case == "last dim":
+        cuda_ntt.transform(x, 4, False)
+    elif case == "log_n":
+        cuda_ntt.transform(x, 27, False)
+    elif case == "strided":
+        cuda_ntt.transform(x.reshape(2, 16).t(), 1, False)
+    elif case == "K1 length":
+        cuda_ntt.ntt_tile(x, 1, 2, 14, False, x, None, None, False, 1)
+    elif case == "K1 size":
+        cuda_ntt.ntt_tile(x, 3, 2, 3, True, x, None, None, False, 1)
+    elif case == "K2 size":
+        cuda_ntt.transpose(x, 1, 4, 4)
+    else:
+        cuda_ntt.transpose(x, 1, 1 << 14, 1)
+
+
+@pytest.mark.parametrize("case", ["dtype", "last dim", "log_n", "strided",
+                                  "K1 length", "K1 size", "K2 size",
+                                  "K2 length"])
+def test_kernel_wrappers_refuse_shapes(case):
+    """Every shape the kernels do not take raises before a launch (and
+    before the device check); there is no fallback to the plain path."""
+    with pytest.raises((ValueError, TypeError)) as info:
+        _refused(case)
+    assert "CUDA tensors only" not in str(info.value)

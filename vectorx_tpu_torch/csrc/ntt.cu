@@ -1,35 +1,75 @@
 // Goldilocks NTT kernels for Hopper (sm_90a), bound to PyTorch with ctypes.
 //
 // Replaces: vectorx_tpu/ntt/pallas_ntt.py — `_kernel` + `transform` (the
-// single-pass in-VMEM transform, n <= 2^18) and `transform_big` +
-// `_dev_twiddle_grid` (the four-step for 2^20 <= n <= 2^24).
+// single-pass in-VMEM transform) and `transform_big` + `_dev_twiddle_grid`
+// (the four-step).  The TPU kernel's own limits (n <= 2^18 in one pass,
+// 2^20 <= n <= 2^24 for the four-step) are VMEM's; the port's are these:
+// K1 transforms columns of length n <= 2^13 (VX_S_BITS), and the four-step
+// built from it covers n <= 2^26 (cuda_ntt.MAX_LOG_N).
 //
-// What bounds it on the H100: a Goldilocks butterfly is one 64x64->128
-// multiply (a*b and __umul64hi) plus a few adds, so the transform is bound by
-// device-memory traffic, not by integer throughput.  The stage-by-stage path
-// (plain torch, one kernel per stage and per field op) reads and writes the
-// whole array about 2·log2(n) times; these kernels keep it to about 2 passes
-// (load once, store once) for n <= 2^13, and about 8 passes (4 kernels)
-// for the four-step up to 2^26.
+// What bounds it on the H100.  Not the bytes: a column of length n costs
+// n/2·log2(n) butterflies, each a Goldilocks product (a 64x64->128
+// multiply and its reduction) plus a modular add and subtract, about 40
+// integer instructions, so at n = 2^8..2^12 an element costs 150-250
+// integer instructions against 16 bytes of device traffic (one read, one
+// write), and the card issues one warp instruction per scheduler per
+// clock (integer adds and selects on 16 lanes of each SM quarter).
+// Measured (scripts/ntt_k1_limits.py, H100 80GB HBM3 at 700 W): at 2^12
+// rows x 2^12 the kernel takes 0.27 ms, the same kernel without its
+// butterflies 0.12 ms and a plain copy of the tensor 0.11 ms; the
+// butterflies' instructions are the rest.  By the count of 32-bit
+// multiply-adds alone (eight a product) the bound is 0.04 ms and by bytes
+// 0.08 ms; the kernel stays near the card's instruction issue rate.  The
+// first version of K1 (one element per thread, log2(n) radix-2 stages
+// through shared memory with a barrier each, 64-bit divisions per element,
+// an n/2 twiddle table copied into every block, uncoalesced strided column
+// reads, field ops as 64-bit compares and selects) took 0.49-0.53 ms there.
 //
 // What the design does about it:
-//  * K1 `ntt_rows_smem`: one block holds a whole row (n <= 2^S_BITS = 2^13,
-//    64 KB) plus the stage twiddles (32 KB) in shared memory, runs all log2(n)
-//    radix-2 DIT stages there with __syncthreads between them, and touches
-//    device memory once on the way in and once on the way out.  The
-//    bit-reversal is folded into the shared-memory store of the load, the
-//    coset pre-multiply shift^j into the load, and the coset post-multiply
-//    and the n^-1 scale of the inverse into the store.  Short rows share a
-//    block (up to 2048 elements per block).  Input rows may be strided
-//    (columns of a matrix), so the four-step's first transpose is folded into
-//    the load.
-//  * K2 `ntt_twiddle_transpose`: a 32x32 tiled shared-memory transpose of an
-//    (R, C) block per batch item that multiplies by w^(r·c) on the way
-//    through (or not).  The four-step for 2^13 < n <= 2^26 is: K1 down the
-//    columns, K2 with twiddles, K1 along the rows, K2 plain.
-//  * Powers (twiddle w^(r·c), coset shift^j) come from two 4096-entry tables,
-//    x^e = lo[e mod 2^L] · hi[e >> L], built on the host with exact integers,
-//    so no table grows with n.
+//  * K1 `ntt_tile`: a block takes a tile of W adjacent columns x the whole
+//    column length n (W = 8 up to n = 2^11, then 4 and 2, so the tile stays
+//    at <= 128 KB of shared memory; for short rows W grows to 2048/n).  A
+//    "column" is element i at i·C + c of a (n, C) block (the four-step's
+//    strided first step) or a contiguous row (C = 1 per batch item, and
+//    the four-step's second step); in both cases neighbouring threads read
+//    neighbouring addresses, so a warp reads whole 32-byte sectors.
+//  * Butterflies in registers: each thread owns 8 elements and runs 3
+//    radix-2 DIT stages on them between shared-memory exchanges (radix-8;
+//    the last pass takes the 1-3 stages left), so a column of 2^12 takes 4
+//    passes and 3 barriers instead of 12.  The bit reversal of DIT costs
+//    nothing: the first pass loads straight from device memory the 8
+//    elements its butterflies need (stride n/8, from rev(g)), and the last
+//    pass stores its 8 results straight to their natural positions.
+//  * The field ops are PTX carry chains on 32-bit words (below): a carry
+//    or borrow out of 2^64 folds back without a 64-bit compare or select,
+//    which cut K1 by a fifth (0.95 against 1.19 ms at the (512, 2^17)
+//    LDE block's column step, scripts/ntt_k1_limits.py).
+//  * No cp.async or TMA staging ring: without its butterflies the kernel
+//    already moves a tile at the speed of a plain copy, so overlapping the
+//    next tile's loads with this tile's butterflies has nothing to hide;
+//    the loads go straight into registers, 8 independent ones per thread.
+//  * Shared memory holds the tile between passes with an XOR swizzle on the
+//    low 4 bits of each index (`swz`, `col_xor`), chosen so that every
+//    half-warp of 64-bit accesses in every pass hits 16 distinct bank pairs
+//    for columns of 2^8 and longer.
+//  * Twiddles come from the n/2-entry stage table in device memory through
+//    the read-only cache: 7 loads per thread and pass, never a copy per
+//    block.  Index math inside a tile is 32-bit; the 64-bit column base is
+//    computed once per thread and pass.
+//  * The coset pre-multiply shift^(c + C·i) and the store's post-multiply
+//    come from one two-level table power per thread and a per-thread step
+//    (one product per element); the n^-1 scale is folded into the
+//    post-multiply's base.  The post-multiply is either a coset power
+//    (c + C·k) or the four-step's twiddle w^(c·k), so the four-step's first
+//    K1 leaves its output twiddled in (b, R, C) order and needs no
+//    twiddled transpose.
+//  * K2 `ntt_transpose`: a 32x32 tiled shared-memory transpose of (R, C)
+//    blocks.  The four-step for 2^13 < n <= 2^26 is three passes over
+//    device memory: K1 down the columns (coset on load, twiddle on store),
+//    K1 along the rows (coset^-1 and n^-1 on store), K2.
+//  * Powers x^e come from two 4096-entry tables, x^e = lo[e mod 2^12] ·
+//    hi[e >> 12], built on the host with exact integers, so no table grows
+//    with n.
 //
 // Values are u64 bit patterns in [0, 2^64), non-canonical like the rest of
 // the package; reduction uses 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
@@ -41,37 +81,86 @@
 
 namespace {
 
-constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p
+// The field ops work on 32-bit words with the carry flag (PTX add.cc /
+// addc, sub.cc / subc), so a carry or borrow out of 2^64 costs no compare
+// and no select: each folds back as a mask of 0 or 2^32 - 1 = EPS.  Inputs
+// and outputs are any u64 bit patterns, congruent mod p to the plain torch
+// field's (`field/goldilocks.py`) results.
 
+// a + b: a carry out of 2^64 adds EPS; that can carry once more, never a
+// third time (after the second fold the sum is below 2^33).
 __device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  if (s < a) {
-    s += EPS;
-    if (s < EPS) s += EPS;
-  }
-  return s;
+  uint64_t r;
+  asm("{\n\t.reg .u32 a0, a1, b0, b1, m;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {b0, b1}, %2;\n\t"
+      "add.cc.u32 a0, a0, b0;\n\t"
+      "addc.cc.u32 a1, a1, b1;\n\t"
+      "addc.u32 m, 0, 0;\n\t"
+      "neg.s32 m, m;\n\t"
+      "add.cc.u32 a0, a0, m;\n\t"
+      "addc.cc.u32 a1, a1, 0;\n\t"
+      "addc.u32 m, 0, 0;\n\t"
+      "neg.s32 m, m;\n\t"
+      "add.cc.u32 a0, a0, m;\n\t"
+      "addc.u32 a1, a1, 0;\n\t"
+      "mov.b64 %0, {a0, a1};\n\t}"
+      : "=l"(r) : "l"(a), "l"(b));
+  return r;
 }
 
+// a - b: a borrow out of 2^64 subtracts EPS, at most twice.
 __device__ __forceinline__ uint64_t gl_sub(uint64_t a, uint64_t b) {
-  uint64_t d = a - b;
-  if (a < b) {
-    uint64_t d2 = d - EPS;
-    if (d < EPS) d2 -= EPS;
-    d = d2;
-  }
-  return d;
+  uint64_t r;
+  asm("{\n\t.reg .u32 a0, a1, b0, b1, m;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {b0, b1}, %2;\n\t"
+      "sub.cc.u32 a0, a0, b0;\n\t"
+      "subc.cc.u32 a1, a1, b1;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 a0, a0, m;\n\t"
+      "subc.cc.u32 a1, a1, 0;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 a0, a0, m;\n\t"
+      "subc.u32 a1, a1, 0;\n\t"
+      "mov.b64 %0, {a0, a1};\n\t}"
+      : "=l"(r) : "l"(a), "l"(b));
+  return r;
 }
 
+// a * b: the 128-bit product r3:r2:r1:r0 from four 32x32 partial products,
+// then r1:r0 - r3 + r2·EPS (2^64 = EPS, 2^96 = -1 mod p): the borrow of the
+// subtraction takes EPS once (the difference is then >= p), the carry of
+// the addition adds EPS once (the sum is then <= 2^64 - 2^33).
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-  const uint64_t lo = a * b;
-  const uint64_t hi = __umul64hi(a, b);
-  const uint64_t hh = hi >> 32;
-  const uint64_t hl = hi & EPS;
-  uint64_t t0 = lo - hh;
-  if (lo < hh) t0 -= EPS;
-  const uint64_t t1 = (hl << 32) - hl;
-  uint64_t r = t0 + t1;
-  if (r < t1) r += EPS;
+  uint64_t r;
+  asm("{\n\t.reg .u32 a0, a1, b0, b1, r0, r1, r2, r3, m;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {b0, b1}, %2;\n\t"
+      "mul.lo.u32 r0, a0, b0;\n\t"
+      "mul.hi.u32 r1, a0, b0;\n\t"
+      "mad.lo.cc.u32 r1, a0, b1, r1;\n\t"
+      "madc.hi.u32 r2, a0, b1, 0;\n\t"
+      "mad.lo.cc.u32 r1, a1, b0, r1;\n\t"
+      "madc.hi.cc.u32 r2, a1, b0, r2;\n\t"
+      "addc.u32 r3, 0, 0;\n\t"
+      "mad.lo.cc.u32 r2, a1, b1, r2;\n\t"
+      "madc.hi.u32 r3, a1, b1, r3;\n\t"
+      "sub.cc.u32 r0, r0, r3;\n\t"
+      "subc.cc.u32 r1, r1, 0;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 r0, r0, m;\n\t"
+      "subc.u32 r1, r1, 0;\n\t"
+      "sub.cc.u32 r3, 0, r2;\n\t"
+      "subc.u32 r2, r2, 0;\n\t"
+      "add.cc.u32 r0, r0, r3;\n\t"
+      "addc.cc.u32 r1, r1, r2;\n\t"
+      "addc.u32 m, 0, 0;\n\t"
+      "neg.s32 m, m;\n\t"
+      "add.cc.u32 r0, r0, m;\n\t"
+      "addc.u32 r1, r1, 0;\n\t"
+      "mov.b64 %0, {r0, r1};\n\t}"
+      : "=l"(r) : "l"(a), "l"(b));
   return r;
 }
 
@@ -82,80 +171,204 @@ struct Pow2 {
   int L;
 };
 
-__device__ __forceinline__ uint64_t pow_at(const Pow2& p, uint64_t e) {
-  return gl_mul(__ldg(p.lo + (e & ((1ull << p.L) - 1))), __ldg(p.hi + (e >> p.L)));
+__device__ __forceinline__ uint64_t pow_at(const Pow2& p, uint32_t e) {
+  return gl_mul(__ldg(p.lo + (e & ((1u << p.L) - 1))), __ldg(p.hi + (e >> p.L)));
 }
 
-// Logical index of element i of row rr: (rr % G) * sR + i * sE; the element
-// of batch item rr / G sits at (rr / G) * bstride + that index.
-struct Addr {
-  long long G, sR, sE, bstride;
+// One K1 launch.  Column gc of the ncols = batch·C columns is column
+// c = gc mod C of batch item b = gc / C; its element i sits at
+// b·n·C + i·C + c (col) or b·n·C + c·n + i (rows).  The output has the
+// input's layout.
+struct K1Args {
+  const uint64_t* in;
+  uint64_t* out;
+  long long ncols;
+  int logC;
+  int col;
+  int logW;           // log2 of the columns per tile
+  const uint64_t* tw; // [w^0 .. w^(n/2-1)], the stage twiddles
+  Pow2 pre;           // times pre^(c + C·i) on load
+  Pow2 post;          // times post^(c + C·k), or post^(c·k) if post_twiddle
+  int post_twiddle;
+  uint64_t scale;     // times scale on store (folded into post)
 };
 
-__global__ void ntt_rows_smem(const uint64_t* __restrict__ in,
-                              uint64_t* __restrict__ out, long long rows,
-                              int log_n, int rpb, Addr ia,
-                              const uint64_t* __restrict__ tw, Pow2 pre,
-                              Addr oa, Pow2 post, uint64_t scale) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  const int half = n >> 1;
-  uint64_t* tws = smem;
-  uint64_t* buf = smem + (half > 0 ? half : 1);
-  const long long row0 = (long long)blockIdx.x * rpb;
-  const long long left = rows - row0;
-  const int nrows = left < rpb ? (int)left : rpb;
+template <int B>
+__device__ __forceinline__ uint32_t rev(uint32_t x) {
+  if constexpr (B == 0) return 0;
+  else return __brev(x) >> (32 - B);
+}
 
-  for (int t = threadIdx.x; t < half; t += blockDim.x) tws[t] = __ldg(tw + t);
-  const int total = nrows << log_n;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int r = t >> log_n;
-    const int i = t & (n - 1);
-    const long long rr = row0 + r;
-    const long long li = (rr % ia.G) * ia.sR + (long long)i * ia.sE;
-    uint64_t v = in[(rr / ia.G) * ia.bstride + li];
-    if (pre.lo) v = gl_mul(v, pow_at(pre, (uint64_t)li));
-    const int j = log_n ? (int)(__brev((unsigned)i) >> (32 - log_n)) : 0;
-    buf[(r << log_n) + j] = v;
+// The shared-memory swizzle: XOR of bits >= 4 of a column index into its
+// low 4 bits (linear over GF(2), so swz(a ^ b) = swz(a) ^ swz(b)).  Bits
+// 4-6 go to (b, parity(b)) and bits 7.. to 3, 0, 1, 2, 3, 0: with the pass
+// structure below every half-warp access is conflict-free for n >= 2^8.
+__host__ __device__ constexpr uint32_t swz(uint32_t j) {
+  const uint32_t b = (j >> 4) & 7;
+  const uint32_t par = (b ^ (b >> 1) ^ (b >> 2)) & 1;
+  return j ^ b ^ (par << 3) ^ (((j >> 7) & 1) << 3) ^ ((j >> 8) & 15) ^
+         (j >> 12);
+}
+
+// A per-column XOR into the low 4 bits, for the passes whose half-warps
+// span several columns (the tile's first and last pass in col layout).
+__device__ __forceinline__ uint32_t col_xor(uint32_t w, int logW) {
+  switch (logW < 3 ? logW : 3) {
+    case 3: return ((w & 1) ? 2u : 0u) ^ ((w & 2) ? 4u : 0u) ^ ((w & 4) ? 9u : 0u);
+    case 2: return ((w & 1) ? 4u : 0u) ^ ((w & 2) ? 10u : 0u);
+    case 1: return (w & 1) ? 12u : 0u;
+    default: return 0u;
   }
-  __syncthreads();
+}
 
-  const int nb = nrows * half;
-  for (int s = 0; s < log_n; ++s) {
-    const int m = 1 << s;
-    const int tsh = log_n - 1 - s;
-    for (int t = threadIdx.x; t < nb; t += blockDim.x) {
-      const int r = t >> (log_n - 1);
-      const int b = t & (half - 1);
-      const int k = b & (m - 1);
-      const int j = ((b >> s) << (s + 1)) | k;
-      uint64_t* row = buf + (r << log_n);
-      const uint64_t u = row[j];
-      const uint64_t v = gl_mul(row[j + m], tws[k << tsh]);
-      row[j] = gl_add(u, v);
-      row[j + m] = gl_sub(u, v);
+// E radix-2 DIT stages S0 .. S0+E-1 on x[t] = element klo + t·2^S0 (+ a
+// constant): pairs (t, t + 2^q) with twiddle w_n^((klo + (t mod 2^q)·2^S0)
+// · 2^(L-1-S0-q)).  In the first pass klo = 0 and w^0 = 1 needs no product.
+template <int L, int S0, int E, bool FIRST>
+__device__ __forceinline__ void radix(uint64_t (&x)[1 << E], uint32_t klo,
+                                      const uint64_t* __restrict__ tw) {
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int sh = L - 1 - S0 - q;
+    uint64_t w[E > 0 ? 1 << (E - 1) : 1];
+#pragma unroll
+    for (int a = 0; a < (1 << q); ++a)
+      w[a] = (FIRST && a == 0) ? 1 : __ldg(tw + ((klo + ((uint32_t)a << S0)) << sh));
+#pragma unroll
+    for (int t = 0; t < (1 << E); ++t) {
+      if (t & (1 << q)) continue;
+      const int a = t & ((1 << q) - 1);
+      uint64_t v = x[t | (1 << q)];
+      if (!(FIRST && a == 0)) v = gl_mul(v, w[a]);
+      x[t | (1 << q)] = gl_sub(x[t], v);
+      x[t] = gl_add(x[t], v);
     }
-    __syncthreads();
   }
+}
 
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int r = t >> log_n;
-    const int i = t & (n - 1);
-    const long long rr = row0 + r;
-    uint64_t v = buf[t];
-    if (post.lo)
-      v = gl_mul(v, pow_at(post, (uint64_t)((rr % oa.G) * oa.sR + (long long)i * oa.sE)));
-    if (scale != 1) v = gl_mul(v, scale);
-    out[rr * n + i] = v;
+// One pass of a tile: every (column w, group g) item holds 2^E elements.
+// The first pass loads from device memory, the last stores to it, the
+// others exchange through shared memory.  Items map column-fast where the
+// pass touches device memory in col layout (neighbouring threads take
+// neighbouring columns), group-fast otherwise.
+template <int L, int S0, int E, bool FIRST, bool LAST>
+__device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
+  constexpr int LG = L - E;  // log2 of the items per column
+  const uint32_t wmask = (1u << a.logW) - 1;
+  const uint32_t items = 1u << (LG + a.logW);
+  const bool colfast = a.col && (FIRST || LAST);
+  const long long col0 = (long long)blockIdx.x << a.logW;
+  const uint32_t C = 1u << a.logC;
+  const uint32_t stride = a.col ? C : 1u;
+  for (uint32_t item = threadIdx.x; item < items; item += blockDim.x) {
+    uint32_t w, g;
+    if (colfast) {
+      w = item & wmask;
+      g = item >> a.logW;
+    } else {
+      g = item & ((1u << LG) - 1);
+      w = item >> LG;
+    }
+    const long long gc = col0 + w;
+    const bool live = gc < a.ncols;
+    const uint32_t c = (uint32_t)gc & (C - 1);
+    const long long base = (gc >> a.logC) * ((long long)C << L) +
+                           (a.col ? (long long)c : (long long)c << L);
+    uint64_t x[1 << E];
+    uint32_t klo = 0;
+    if constexpr (FIRST) {
+      // DIT reads element rev(j) into position j = t + 2^E·g: the 2^E
+      // elements i0 + u·2^LG with i0 = rev(g), u = rev(t).  In row layout
+      // the item's rank is i0 itself, so neighbouring threads read
+      // neighbouring addresses.
+      uint32_t i0;
+      if (a.col) {
+        i0 = rev<LG>(g);
+      } else {
+        i0 = g;
+        g = rev<LG>(g);
+      }
+      const bool pre = a.pre.lo != nullptr;
+      uint64_t p = 0, step = 0;
+      if (pre) {
+        p = pow_at(a.pre, c + C * i0);
+        step = pow_at(a.pre, C << LG);
+      }
+#pragma unroll
+      for (int u = 0; u < (1 << E); ++u) {
+        uint64_t v = live ? a.in[base + (i0 + ((uint32_t)u << LG)) * stride] : 0;
+        if (pre) {
+          v = gl_mul(v, p);
+          p = gl_mul(p, step);
+        }
+        x[rev<E>(u)] = v;
+      }
+    } else {
+      klo = g & ((1u << S0) - 1);
+    }
+    // shared-memory slot of element j_t = klo + t·2^S0 + hi·2^(S0+E)
+    const uint32_t hi = g >> S0;
+    const uint32_t sb = (w << L) | (swz(klo | (hi << (S0 + E))) ^ col_xor(w, a.logW));
+    if constexpr (!FIRST) {
+#pragma unroll
+      for (int t = 0; t < (1 << E); ++t) x[t] = buf[sb ^ swz((uint32_t)t << S0)];
+    }
+    radix<L, S0, E, FIRST>(x, klo, a.tw);
+    if constexpr (LAST) {
+      // outputs k_t = klo + t·2^S0 (the last pass has hi = 0)
+      const bool post = a.post.lo != nullptr;
+      uint64_t p = 0, step = 0;
+      if (post) {
+        const uint32_t e0 = a.post_twiddle ? 0u : c;
+        const uint32_t e1 = a.post_twiddle ? c : C;
+        p = pow_at(a.post, e0 + e1 * klo);
+        step = pow_at(a.post, e1 << S0);
+        if (a.scale != 1) p = gl_mul(p, a.scale);
+      }
+#pragma unroll
+      for (int t = 0; t < (1 << E); ++t) {
+        uint64_t v = x[t];
+        if (post) {
+          v = gl_mul(v, p);
+          p = gl_mul(p, step);
+        } else if (a.scale != 1) {
+          v = gl_mul(v, a.scale);
+        }
+        if (live) a.out[base + (klo + ((uint32_t)t << S0)) * stride] = v;
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < (1 << E); ++t) buf[sb ^ swz((uint32_t)t << S0)] = x[t];
+    }
   }
+}
+
+__host__ __device__ constexpr int num_passes(int L) { return L <= 3 ? 1 : (L + 2) / 3; }
+
+template <int L, int p>
+__device__ __forceinline__ void tile_passes(const K1Args& a, uint64_t* buf) {
+  constexpr int P = num_passes(L);
+  constexpr int S0 = 3 * p;
+  constexpr int E = p == P - 1 ? L - S0 : 3;
+  tile_pass<L, S0, E, p == 0, p == P - 1>(a, buf);
+  if constexpr (p + 1 < P) {
+    __syncthreads();
+    tile_passes<L, p + 1>(a, buf);
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(512) ntt_tile(K1Args a) {
+  extern __shared__ uint64_t buf[];
+  tile_passes<L, 0>(a, buf);
 }
 
 constexpr int TILE = 32;
 
-// out[b][c][r] = in[b][r][c] * (tw ? w^(r*c) : 1) for each (R, C) batch item.
-__global__ void ntt_twiddle_transpose(const uint64_t* __restrict__ in,
-                                      uint64_t* __restrict__ out,
-                                      long long batch, int R, int C, Pow2 tw) {
+// out[b][c][r] = in[b][r][c] for each (R, C) batch item.
+__global__ void ntt_transpose(const uint64_t* __restrict__ in,
+                              uint64_t* __restrict__ out, long long batch,
+                              int R, int C) {
   __shared__ uint64_t tile[TILE][TILE + 1];
   const int c0 = blockIdx.x * TILE;
   const int r0 = blockIdx.y * TILE;
@@ -166,11 +379,7 @@ __global__ void ntt_twiddle_transpose(const uint64_t* __restrict__ in,
     for (int dy = threadIdx.y; dy < TILE; dy += blockDim.y) {
       const int r = r0 + dy;
       const int c = c0 + threadIdx.x;
-      if (r < R && c < C) {
-        uint64_t v = src[(long long)r * C + c];
-        if (tw.lo) v = gl_mul(v, pow_at(tw, (uint64_t)r * (uint64_t)c));
-        tile[dy][threadIdx.x] = v;
-      }
+      if (r < R && c < C) tile[dy][threadIdx.x] = src[(long long)r * C + c];
     }
     __syncthreads();
     for (int dy = threadIdx.y; dy < TILE; dy += blockDim.y) {
@@ -182,55 +391,99 @@ __global__ void ntt_twiddle_transpose(const uint64_t* __restrict__ in,
   }
 }
 
+typedef void (*TileKernel)(K1Args);
+
+template <int L>
+int launch_tile(const K1Args& a, long long blocks, int threads, size_t smem,
+                cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    static bool raised = false;  // the attribute is per kernel, set once
+    if (!raised) {
+      cudaError_t e = cudaFuncSetAttribute(
+          ntt_tile<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, 128 * 1024);
+      if (e != cudaSuccess) return (int)e;
+      raised = true;
+    }
+  }
+  ntt_tile<L><<<(unsigned)blocks, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// log2 of K1's tile width for a column length 2^log_n: 2^(11 - log_n)
+// columns for short rows (2048 elements a tile), at least 8 adjacent
+// columns in col layout for whole 64-byte segments, at most 2^14 elements
+// (128 KB) a tile.
+int tile_log_w(int log_n, int col) {
+  int lw = 11 - log_n;
+  if (col && lw < 3) lw = 3;
+  if (lw > 14 - log_n) lw = 14 - log_n;
+  return lw < 0 ? 0 : lw;
+}
+
 }  // namespace
 
 extern "C" {
 
 int vx_ntt_s_bits() { return VX_S_BITS; }
 
-// K1 launch.  Returns cudaGetLastError() (0 on success).
-int vx_ntt_rows(const void* in, void* out, long long rows, int log_n,
-                long long iG, long long isR, long long isE, long long ibstride,
-                const void* tw, const void* pre_lo, const void* pre_hi,
-                int pre_L, long long oG, long long osR, long long osE,
-                const void* post_lo, const void* post_hi, int post_L,
-                unsigned long long scale, void* stream) {
-  if (log_n < 0 || log_n > VX_S_BITS || rows < 0 || iG <= 0 || oG <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  const int n = 1 << log_n;
-  const int rpb = n >= 2048 ? 1 : 2048 / n;
-  const int threads = n >= 4096 ? 512 : 256;
-  const size_t smem = ((size_t)(n > 1 ? n / 2 : 1) + (size_t)rpb * n) * sizeof(uint64_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ntt_rows_smem, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long blocks = (rows + rpb - 1) / rpb;
-  Addr ia{iG, isR, isE, ibstride};
-  Addr oa{oG, osR, osE, 0};
-  Pow2 pre{(const uint64_t*)pre_lo, (const uint64_t*)pre_hi, pre_L};
-  Pow2 post{(const uint64_t*)post_lo, (const uint64_t*)post_hi, post_L};
-  ntt_rows_smem<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, rows, log_n, rpb, ia,
-      (const uint64_t*)tw, pre, oa, post, (uint64_t)scale);
-  return (int)cudaGetLastError();
+// K1's dynamic shared memory per block: the tile, when it takes more than
+// one pass.
+int vx_ntt_tile_smem(int log_n, int col) {
+  if (log_n < 0 || log_n > VX_S_BITS || num_passes(log_n) == 1) return 0;
+  return (int)sizeof(uint64_t) << (log_n + tile_log_w(log_n, col));
 }
 
-// K2 launch.  tw_lo == nullptr: plain transpose.
-int vx_twiddle_transpose(const void* in, void* out, long long batch, int R,
-                         int C, const void* tw_lo, const void* tw_hi, int tw_L,
-                         void* stream) {
+// K1 launch.  Returns cudaGetLastError() (0 on success).
+int vx_ntt_tile(const void* in, void* out, long long ncols, int logC, int col,
+                int log_n, const void* tw, const void* pre_lo,
+                const void* pre_hi, int pre_L, const void* post_lo,
+                const void* post_hi, int post_L, int post_twiddle,
+                unsigned long long scale, void* stream) {
+  if (log_n < 0 || log_n > VX_S_BITS || ncols < 0 || logC < 0 ||
+      logC + log_n > 2 * VX_S_BITS)
+    return (int)cudaErrorInvalidValue;
+  if (ncols == 0) return 0;
+  const int logW = tile_log_w(log_n, col);
+  const long long blocks = (ncols + (1ll << logW) - 1) >> logW;
+  if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  const long long elems = 1ll << (log_n + logW);
+  const int threads = elems >= 4096 ? 512 : 256;
+  const size_t smem = (size_t)vx_ntt_tile_smem(log_n, col);
+  K1Args a{(const uint64_t*)in, (uint64_t*)out, ncols, logC, col, logW,
+           (const uint64_t*)tw,
+           Pow2{(const uint64_t*)pre_lo, (const uint64_t*)pre_hi, pre_L},
+           Pow2{(const uint64_t*)post_lo, (const uint64_t*)post_hi, post_L},
+           post_twiddle, (uint64_t)scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (log_n) {
+    case 0: return launch_tile<0>(a, blocks, threads, smem, s);
+    case 1: return launch_tile<1>(a, blocks, threads, smem, s);
+    case 2: return launch_tile<2>(a, blocks, threads, smem, s);
+    case 3: return launch_tile<3>(a, blocks, threads, smem, s);
+    case 4: return launch_tile<4>(a, blocks, threads, smem, s);
+    case 5: return launch_tile<5>(a, blocks, threads, smem, s);
+    case 6: return launch_tile<6>(a, blocks, threads, smem, s);
+    case 7: return launch_tile<7>(a, blocks, threads, smem, s);
+    case 8: return launch_tile<8>(a, blocks, threads, smem, s);
+    case 9: return launch_tile<9>(a, blocks, threads, smem, s);
+    case 10: return launch_tile<10>(a, blocks, threads, smem, s);
+    case 11: return launch_tile<11>(a, blocks, threads, smem, s);
+    case 12: return launch_tile<12>(a, blocks, threads, smem, s);
+    default: return launch_tile<13>(a, blocks, threads, smem, s);
+  }
+}
+
+// K2 launch.
+int vx_transpose(const void* in, void* out, long long batch, int R, int C,
+                 void* stream) {
   if (batch < 0 || R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   dim3 block(TILE, 8);
   const long long gz = batch < 65535 ? batch : 65535;
   dim3 grid((C + TILE - 1) / TILE, (R + TILE - 1) / TILE, (unsigned)gz);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  Pow2 tw{(const uint64_t*)tw_lo, (const uint64_t*)tw_hi, tw_L};
-  ntt_twiddle_transpose<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, batch, R, C, tw);
+  ntt_transpose<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)in, (uint64_t*)out, batch, R, C);
   return (int)cudaGetLastError();
 }
 

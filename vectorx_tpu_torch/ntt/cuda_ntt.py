@@ -2,21 +2,29 @@
 their plain torch version and a torch emulation of their algorithm.
 
 Replaces `vectorx_tpu.ntt.pallas_ntt` (`transform`, `transform_big`,
-`transform_any`): K1 `ntt_rows_smem` is a batched transform of rows of
-length n <= 2^S_BITS held whole in shared memory; K2
-`ntt_twiddle_transpose` is the twiddled transpose of the four-step that
-covers 2^S_BITS < n <= 2^(2·S_BITS).  `csrc/ntt.cu` carries the note on what
-bounds them on the card and how the design deals with it.
+`transform_any`).  K1 `ntt_tile` transforms columns of length
+n <= 2^S_BITS, a tile of adjacent columns per block: radix-8 butterflies in
+registers with swizzled shared-memory exchanges between them, coalesced
+loads and stores for strided columns and for contiguous rows alike, a coset
+power on load, and on store either a coset power (with n^-1 folded in) or
+the four-step twiddle w^(c·k).  K2 `ntt_transpose` is the plain transpose
+that finishes the four-step, which covers 2^S_BITS < n <= 2^MAX_LOG_N in
+three passes over device memory: K1 down the columns (twiddled on store),
+K1 along the rows, K2.  The port's limits are K1's column length
+(2^S_BITS) and MAX_LOG_N; the TPU kernel's size gates do not apply.  On
+the H100 K1 is held back by the integer instructions of its butterflies,
+not by device-memory bytes: `csrc/ntt.cu` carries the note with the
+numbers, `chip_smoke.py` phase 1 prints each step's bounds and share.
 
 * `transform` — the kernel path: CUDA int64 tensors only, raises on anything
   the kernels do not take.  Never falls back.
 * `transform_plain` — the plain torch version of the same function (the CPU
   path, and the oracle `chip_smoke.py` holds the kernels against).
-* `ntt_rows`/`twiddle_transpose` — one launch of K1/K2, each with its plain
-  torch version beside it (`ntt_rows_plain`, `twiddle_transpose_plain`).
+* `ntt_tile`/`transpose` — one launch of K1/K2, each with its plain torch
+  version beside it (`ntt_tile_plain`, `transpose_plain`).
 * `emulate` — `transform` with each kernel replaced by its plain version
-  (same split, same stage order, same tables), so the CPU tests hold the
-  kernels' algorithm against `transform_plain`.
+  (same split, same steps, same stage order, same tables), so the CPU tests
+  hold the kernels' algorithm against `transform_plain`.
 
 The shared library is built with nvcc at first use, from `csrc/` only, into
 `_build/<source hash>/` beside this package (listed in `.gitignore`); delete
@@ -45,12 +53,12 @@ _ntt = importlib.import_module("vectorx_tpu_torch.ntt.ntt")
 
 P = gl.P
 
-S_BITS = 13                # K1 holds a row of 2^S_BITS u64 in shared memory
+S_BITS = 13                # K1's longest column: a tile of 2^14 u64 (128 KB)
 MAX_LOG_N = 2 * S_BITS     # four-step: both halves are K1 sizes
 POW_L = 12                 # two-level power tables: x^e = lo[e % 2^L]·hi[e >> L]
 
 # Kernel launches, counted by the wrapper where it launches each kernel.
-LAUNCHES = {"ntt_rows_smem": 0, "ntt_twiddle_transpose": 0}
+LAUNCHES = {"ntt_tile": 0, "ntt_transpose": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -115,13 +123,13 @@ def load():
     if _LIB is None:
         lib = ctypes.CDLL(build())
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.vx_ntt_rows.argtypes = [vp, vp, ll, ci, ll, ll, ll, ll, vp,
-                                    vp, vp, ci, ll, ll, ll, vp, vp, ci,
-                                    ctypes.c_ulonglong, vp]
-        lib.vx_ntt_rows.restype = ci
-        lib.vx_twiddle_transpose.argtypes = [vp, vp, ll, ci, ci, vp, vp, ci,
-                                             vp]
-        lib.vx_twiddle_transpose.restype = ci
+        lib.vx_ntt_tile.argtypes = [vp, vp, ll, ci, ci, ci, vp, vp, vp, ci,
+                                    vp, vp, ci, ci, ctypes.c_ulonglong, vp]
+        lib.vx_ntt_tile.restype = ci
+        lib.vx_transpose.argtypes = [vp, vp, ll, ci, ci, vp]
+        lib.vx_transpose.restype = ci
+        lib.vx_ntt_tile_smem.argtypes = [ci, ci]
+        lib.vx_ntt_tile_smem.restype = ci
         lib.vx_ntt_s_bits.argtypes = []
         lib.vx_ntt_s_bits.restype = ci
         if lib.vx_ntt_s_bits() != S_BITS:
@@ -166,7 +174,9 @@ def split(log_n: int) -> tuple[int, int]:
 
 def plan(x: torch.Tensor, log_n: int, inverse: bool, shift, s_bits: int):
     """Everything a transform needs besides the kernels themselves: the
-    shared recipe of `transform` and `emulate`."""
+    shared recipe of `transform` and `emulate`.  A K1 step is
+    ("k1", batch, C, log_n, col, tw, pre, post, twiddle, scale) as
+    `ntt_tile` takes it; a K2 step ("k2", batch, R, C)."""
     n = 1 << log_n
     dev = x.device
     scale = pow(n, P - 2, P) if inverse else 1
@@ -176,92 +186,100 @@ def plan(x: torch.Tensor, log_n: int, inverse: bool, shift, s_bits: int):
             post = pow_tables(pow(shift, P - 2, P), log_n, dev)
         else:
             pre = pow_tables(shift, log_n, dev)
-    steps = []
     b = x.numel() // n
     if log_n <= s_bits:
-        steps.append(("k1", b, log_n, (1, 0, 1, n),
-                      _ntt.twiddles(log_n, inverse, dev), pre,
-                      (1, 0, 1), post, scale))
-        return steps
+        return [("k1", b, 1, log_n, False, _ntt.twiddles(log_n, inverse, dev),
+                 pre, post, False, scale)]
     a, c = split(log_n)
     R, C = 1 << a, 1 << c
     w_n = _ntt._root_of_unity(log_n, inverse)
-    steps += [
-        # K1 down the columns: x[c + C·r] -> Y[k1][c], stored (b, C, R)
-        ("k1", b * C, a, (C, 1, C, n), _ntt.twiddles(a, inverse, dev), pre,
-         (1, 0, 1), None, 1),
-        # K2: (b, C, R) -> (b, R, C), times w_n^(c·k1)
-        ("k2", b, C, R, pow_tables(w_n, log_n, dev)),
-        # K1 along the rows: Z[k1][k2], natural index k = k1 + R·k2
-        ("k1", b * R, c, (1, 0, 1, C), _ntt.twiddles(c, inverse, dev), None,
-         (R, 1, R), post, scale),
+    return [
+        # K1 down the C columns of length R (x[c + C·r], coset on load):
+        # Y[k1][c] times w_n^(c·k1), stored (b, R, C)
+        ("k1", b, C, a, True, _ntt.twiddles(a, inverse, dev), pre,
+         pow_tables(w_n, log_n, dev), True, 1),
+        # K1 along the R rows of length C: Z[k1][k2], natural index
+        # k = k1 + R·k2, so the coset^-1 power is post^(k1 + R·k2)
+        ("k1", b, R, c, False, _ntt.twiddles(c, inverse, dev), None, post,
+         False, scale),
         # K2: (b, R, C) -> (b, C, R) = natural order
-        ("k2", b, R, C, None),
+        ("k2", b, R, C),
     ]
-    return steps
 
 
 def _check(x: torch.Tensor, log_n: int):
-    if not x.is_cuda:
-        raise ValueError("cuda_ntt.transform takes CUDA tensors only")
     if x.dtype != torch.int64:
         raise TypeError(f"expected int64 (u64 bit patterns), got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("input must be contiguous")
-    if x.dim() < 1 or x.shape[-1] != 1 << log_n:
-        raise ValueError(f"last dim {tuple(x.shape)} is not 2^{log_n}")
     if not 0 <= log_n <= MAX_LOG_N:
         raise ValueError(f"log_n={log_n} outside [0, {MAX_LOG_N}]")
+    if x.dim() < 1 or x.shape[-1] != 1 << log_n:
+        raise ValueError(f"last dim {tuple(x.shape)} is not 2^{log_n}")
+    if not x.is_cuda:
+        raise ValueError("cuda_ntt.transform takes CUDA tensors only")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _log2(v: int) -> int:
+    lg = v.bit_length() - 1
+    if v <= 0 or 1 << lg != v:
+        raise ValueError(f"{v} is not a power of two")
+    return lg
+
+
 _NO_POW = (None, None, 0)
 
 
-def ntt_rows(src: torch.Tensor, rows: int, log_n: int, ia, tw, pre, oa,
-             post, scale: int) -> torch.Tensor:
-    """Launch K1 once: transform `rows` rows of length 2^log_n read from
-    `src` with addressing ia = (G, sR, sE, bstride) (element i of row r at
-    (r // G)·bstride + (r % G)·sR + i·sE), times pre-table^(that index) on
-    load; store (rows, 2^log_n) contiguous, times post-table^((r % oG)·oR
-    + i·oE) and `scale`.  `tw` holds the 2^(log_n-1) stage twiddles."""
+def ntt_tile(src: torch.Tensor, batch: int, C: int, log_n: int, col: bool,
+             tw, pre, post, twiddle: bool, scale: int) -> torch.Tensor:
+    """Launch K1 once on the batch·C columns of length n = 2^log_n in
+    `src` (batch items of n·C elements): column c's element i at i·C + c
+    of its item when `col`, at c·n + i (contiguous rows) otherwise.
+    Multiplies element i by pre^(c + C·i) on load; transforms each column
+    with the 2^(log_n-1) stage twiddles `tw`; multiplies output k by
+    post^(c·k) if `twiddle` else post^(c + C·k), and by `scale`; stores in
+    the input's layout."""
     if not 0 <= log_n <= S_BITS:
         raise ValueError(f"K1 takes log_n <= {S_BITS}, got {log_n}")
-    out = torch.empty((rows, 1 << log_n), dtype=torch.int64,
-                      device=src.device)
+    if (not src.is_contiguous() or src.dtype != torch.int64
+            or src.numel() != batch * C << log_n):
+        raise ValueError(f"K1 takes {batch} contiguous int64 items of "
+                         f"2^{log_n} x {C}, got {tuple(src.shape)}")
+    if not src.is_cuda:
+        raise ValueError("ntt_tile takes CUDA tensors only")
+    out = torch.empty_like(src)
     pre = pre or _NO_POW
     post = post or _NO_POW
-    err = load().vx_ntt_rows(
-        src.data_ptr(), out.data_ptr(), rows, log_n, *ia, tw.data_ptr(),
-        _ptr(pre[0]), _ptr(pre[1]), pre[2], *oa,
-        _ptr(post[0]), _ptr(post[1]), post[2], scale,
+    err = load().vx_ntt_tile(
+        src.data_ptr(), out.data_ptr(), batch * C, _log2(C), int(col), log_n,
+        tw.data_ptr(), _ptr(pre[0]), _ptr(pre[1]), pre[2],
+        _ptr(post[0]), _ptr(post[1]), post[2], int(twiddle), scale,
         torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ntt_rows_smem launch failed: cudaError {err}")
-    LAUNCHES["ntt_rows_smem"] += 1
+        raise RuntimeError(f"ntt_tile launch failed: cudaError {err}")
+    LAUNCHES["ntt_tile"] += 1
     return out
 
 
-def twiddle_transpose(src: torch.Tensor, batch: int, R: int, C: int,
-                      tw) -> torch.Tensor:
-    """Launch K2 once: (batch, R, C) -> (batch, C, R), times
-    tw-table^(r·c) on the way through when `tw` is given."""
-    if max(R, C) > 1 << S_BITS or src.numel() != batch * R * C:
-        raise ValueError(f"K2 takes (batch, R, C) blocks with R, C <= "
-                         f"2^{S_BITS}, got {batch}x{R}x{C}")
+def transpose(src: torch.Tensor, batch: int, R: int, C: int) -> torch.Tensor:
+    """Launch K2 once: (batch, R, C) -> (batch, C, R)."""
+    if (max(R, C) > 1 << S_BITS or src.numel() != batch * R * C
+            or not src.is_contiguous() or src.dtype != torch.int64):
+        raise ValueError(f"K2 takes contiguous int64 (batch, R, C) blocks "
+                         f"with R, C <= 2^{S_BITS}, got {batch}x{R}x{C}")
+    if not src.is_cuda:
+        raise ValueError("ntt_transpose takes CUDA tensors only")
     out = torch.empty((batch, C, R), dtype=torch.int64, device=src.device)
-    tw = tw or _NO_POW
-    err = load().vx_twiddle_transpose(
+    err = load().vx_transpose(
         src.data_ptr(), out.data_ptr(), batch, R, C,
-        _ptr(tw[0]), _ptr(tw[1]), tw[2],
         torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ntt_twiddle_transpose launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["ntt_twiddle_transpose"] += 1
+        raise RuntimeError(f"ntt_transpose launch failed: cudaError {err}")
+    LAUNCHES["ntt_transpose"] += 1
     return out
 
 
@@ -274,7 +292,7 @@ def transform(x: torch.Tensor, log_n: int, inverse: bool,
     _check(x, log_n)
     cur = x
     for st in plan(x, log_n, inverse, shift, S_BITS):
-        cur = (ntt_rows if st[0] == "k1" else twiddle_transpose)(cur, *st[1:])
+        cur = (ntt_tile if st[0] == "k1" else transpose)(cur, *st[1:])
     return cur.reshape(x.shape)
 
 
@@ -295,55 +313,46 @@ def transform_plain(x: torch.Tensor, log_n: int, inverse: bool,
 # Plain torch versions of each kernel, and the kernels' algorithm on them
 # ---------------------------------------------------------------------------
 
-def ntt_rows_plain(src, rows, log_n, ia, tw, pre, oa, post, scale):
-    """The plain torch version of `ntt_rows` (K1): the same gather, the
-    same bit-reversed DIT stage order and the same tables."""
+def ntt_tile_plain(src, batch, C, log_n, col, tw, pre, post, twiddle, scale):
+    """The plain torch version of `ntt_tile` (K1): the same layouts, the
+    same radix-2 DIT stages on bit-reversed columns and the same tables."""
     n = 1 << log_n
     dev = src.device
-    G, sR, sE, bstride = ia
-    rr = torch.arange(rows, device=dev)[:, None]
+    v = src.reshape(batch, n, C).transpose(1, 2) if col else \
+        src.reshape(batch, C, n)
+    c = torch.arange(C, device=dev)[:, None]
     i = torch.arange(n, device=dev)[None, :]
-    li = (rr % G) * sR + i * sE
-    v = src.reshape(-1)[(rr // G) * bstride + li]
     if pre is not None:
-        v = gl.mul(v, _pow_at(pre, li))
-    buf = torch.empty_like(v)
-    buf[:, torch.from_numpy(_ntt.bit_reverse_perm(log_n)).to(dev)] = v
+        v = gl.mul(v, _pow_at(pre, c + C * i))
+    v = v[..., torch.from_numpy(_ntt.bit_reverse_perm(log_n)).to(dev)]
     b = torch.arange(n // 2, device=dev)
     for s in range(log_n):
         m = 1 << s
         k = b & (m - 1)
         j = ((b >> s) << (s + 1)) | k
-        u = buf[:, j]
-        t = gl.mul(buf[:, j + m], tw[k << (log_n - 1 - s)])
-        buf[:, j] = gl.add(u, t)
-        buf[:, j + m] = gl.sub(u, t)
+        u = v[..., j]
+        t = gl.mul(v[..., j + m], tw[k << (log_n - 1 - s)])
+        v[..., j] = gl.add(u, t)
+        v[..., j + m] = gl.sub(u, t)
     if post is not None:
-        oG, osR, osE = oa
-        buf = gl.mul(buf, _pow_at(post, (rr % oG) * osR + i * osE))
+        v = gl.mul(v, _pow_at(post, c * i if twiddle else c + C * i))
     if scale != 1:
-        buf = gl.mul(buf, scale)
-    return buf
+        v = gl.mul(v, scale)
+    return (v.transpose(1, 2) if col else v).reshape(src.shape).contiguous()
 
 
-def twiddle_transpose_plain(src, batch, R, C, tw):
-    """The plain torch version of `twiddle_transpose` (K2)."""
-    dev = src.device
-    v = src.reshape(batch, R, C)
-    if tw is not None:
-        e = (torch.arange(R, device=dev)[:, None]
-             * torch.arange(C, device=dev)[None, :])
-        v = gl.mul(v, _pow_at(tw, e))
-    return v.transpose(1, 2).contiguous()
+def transpose_plain(src, batch, R, C):
+    """The plain torch version of `transpose` (K2)."""
+    return src.reshape(batch, R, C).transpose(1, 2).contiguous()
 
 
 def emulate(x: torch.Tensor, log_n: int, inverse: bool,
             shift: int | None = None, s_bits: int = S_BITS) -> torch.Tensor:
     """`transform` with each kernel replaced by its plain version: the
-    kernels' algorithm (split, stage order, tables) in torch.  A small
-    `s_bits` forces the four-step at small sizes."""
+    kernels' algorithm (split, steps, stage order, tables) in torch.  A
+    small `s_bits` forces the four-step at small sizes."""
     cur = x.contiguous()
     for st in plan(x, log_n, inverse, shift, s_bits):
-        fn = ntt_rows_plain if st[0] == "k1" else twiddle_transpose_plain
+        fn = ntt_tile_plain if st[0] == "k1" else transpose_plain
         cur = fn(cur, *st[1:])
     return cur.reshape(x.shape)
