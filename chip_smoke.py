@@ -15,33 +15,47 @@ so the script exits non-zero and prints no final line:
    edge values; the header_range path's own transforms (a Blake2b chunk's
    2664-row trace iNTT at 2^14 and its coset LDE to 2^17, whole and in the
    prover's row blocks); each kernel alone at every step of the 2^24, the
-   (512, 2^17) coset and the (2664, 2^14) inverse plans; then median times
-   of each step and of the whole transforms at (8, 2^20), (4, 2^23),
-   (1, 2^24), (2664, 2^14) and (512, 2^17), each beside its bound (bytes
-   or integer multiply-adds, at the SM clock read under load), its share
-   of the bound, its plain version and the time recorded for the first
-   version of the kernels.
+   (512, 2^17) and (50, 2^20) coset and the (2664, 2^14) inverse plans
+   ((50, 2^20): the aggregated rotate machine's widest column group on one
+   coset); then median times of each step and of the whole transforms at
+   (8, 2^20), (4, 2^23), (1, 2^24), (2664, 2^14), (512, 2^17) and
+   (50, 2^20), each beside its bound (bytes or integer multiply-adds, at
+   the SM clock read under load), its share of the bound, its plain
+   version and the time recorded for the first version of the kernels.
 2. the `entry()` twin on CUDA and on CPU: equal Merkle roots.
 3. the STARK prover path at the production FRI config (`FriConfig()`:
-   rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=20) and
-   RangeCheckAir(log_n=19, bits=16, V=8), each proved on CUDA cold and warm
-   (the warm proof with per-stage timers), verified after each, and
-   rejected after tampering; every kernel must have launched.
-4. CUDA against CPU proofs at log_n=8: identical proof JSON.
+   rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=18) and
+   RangeCheckAir(log_n=17, bits=16, V=8), each proved on CUDA with
+   per-stage timers, verified, and rejected after tampering; every kernel
+   must have launched.
+4. CUDA against CPU proofs at log_n=8: identical proof JSON for
+   RangeCheckAir(8); the coset-streamed prover (`prove_streamed`) gives
+   `prove`'s JSON on CUDA and the same JSON on CPU for the LogUp bus AIR
+   of `tests/test_bus.py` and FibonacciAir(8); the machine proof of the
+   FibonacciAir(3) aggregation (1047 rows, log_n 11) is identical on CUDA
+   and CPU.
 5. the byte hashes on the card: `blake2b_batch` over 4096 messages of
    random lengths up to 35,840 B against hashlib, `sha256_batch` against
    hashlib, the SHA-256 Merkle root of 256 leaves against the host root.
 6. batched ed25519 on the card: 300 keys, 240 signed, accepted; one forged
    signature rejected; the CPU run agrees.
-7. the header_range statement at the reference deployment's size (tree
-   256, 300 authorities, mixed headers of ~360-2100 B): the non-ZK
-   `HeaderRangeCircuit.run` and the component-proof
+7. the header_range statement with the reference deployment's widths (300
+   authorities, mixed headers of ~360-2100 B) at tree 8 (the deployment
+   runs 256): the non-ZK `HeaderRangeCircuit.run` and the component-proof
    `prove_header_range_zk` at the production FRI config on the card, both
-   outputs equal to `DummyHeaderRange`'s; `verify_header_range_zk` accepts,
-   a tampered header hash and a tampered SHA chunk proof are rejected;
-   every kernel must have launched during the proof.
+   outputs equal to `DummyHeaderRange`'s; `verify_header_range_zk`
+   accepts, a tampered header hash and a tampered SHA chunk proof are
+   rejected; every kernel must have launched during the proof.
 8. the tree=2 ZK statement of the tests at their small config: every
-   component proof's JSON identical on CUDA and on CPU.
+   component proof's JSON on CUDA identical to the JAX reference's proof
+   of the same statement (the golden fixtures under `tests/fixtures/`).
+9. the aggregated ZK rotate at 300 authorities and `StarkConfig()`:
+   `prove_rotate_zk` / `verify_rotate_zk` (output equal to
+   `DummyRotate`'s), then `aggregate_rotate_proof`, one streamed machine
+   proof of 724,556 rows (log_n 20), with its stage times, peak device
+   memory and the host memory of its trees; `verify_rotate_zk_aggregated`
+   accepts, and only then a tampered header hash and a tampered FRI final
+   coefficient are rejected; every kernel must have launched on the path.
 
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and `{"ok": true, "device": {...}}`.
@@ -183,6 +197,7 @@ def phase_kernels(dev, card: str) -> dict:
     from vectorx_tpu_torch.field import goldilocks as gl
     from vectorx_tpu_torch.ntt import (coset_intt, coset_ntt, cuda_ntt, intt,
                                        lde, ntt)
+    from vectorx_tpu_torch.recursion import machine
     from vectorx_tpu_torch.stark import blake2b_air, stages
 
     rng = np.random.default_rng(1)
@@ -270,11 +285,15 @@ def phase_kernels(dev, card: str) -> dict:
 
     # each kernel alone at every step of the main paths' four-step plans:
     # the first slice's 2^24 transform, the header_range path's (512, 2^17)
-    # coset LDE block and its (2664, 2^14) trace iNTT
+    # coset LDE block and its (2664, 2^14) trace iNTT, and the aggregated
+    # rotate's per-coset transform of the machine's widest committed group
+    # (its 50 constant columns at 2^20 rows, on coset 1 of 2^23)
     S = cuda_ntt.S_BITS
+    m_rows, m_shift = machine.N_CONSTS, stages.coset_shift(1, 23)
     plans = {"2^24": (1, 24, False, gl.GENERATOR),
              "lde": (block, 17, False, gl.GENERATOR),
-             "intt": (rows_n, 14, True, None)}
+             "intt": (rows_n, 14, True, None),
+             "machine": (m_rows, 20, False, m_shift)}
     steps_in, plan_inputs = {}, {}
     for key, (batch, log_n, inverse, shift) in plans.items():
         x = random_field(rng, (batch, 1 << log_n), dev)
@@ -295,8 +314,9 @@ def phase_kernels(dev, card: str) -> dict:
              cuda_ntt.transform_plain(x, log_n, inverse, shift),
              f"four-step {key} chain")
         plan_inputs[key] = (x, log_n, inverse, shift)
-    log(f"phase 1: every K1/K2 step of the 2^24 and ({block}, 2^17) coset "
-        f"plans and of the ({rows_n}, 2^14) iNTT plan == its plain version")
+    log(f"phase 1: every K1/K2 step of the 2^24, ({block}, 2^17) and "
+        f"({m_rows}, 2^20) coset plans and of the ({rows_n}, 2^14) iNTT plan "
+        f"== its plain version")
 
     # times at the main paths' shapes, each beside its bound, its plain
     # version and the first version's recorded time
@@ -347,11 +367,16 @@ def phase_kernels(dev, card: str) -> dict:
     step("K2 2^12 x 2^12", "2^24", 2)
     step(f"K1 ({rows_n}, 2^14) iNTT column step", "intt", 0)
     step(f"K1 ({rows_n}, 2^14) iNTT row step", "intt", 1)
+    step(f"K1 ({m_rows}, 2^20) coset column step", "machine", 0)
+    step(f"K1 ({m_rows}, 2^20) coset row step", "machine", 1)
+    step(f"K2 ({m_rows}, 2^20)", "machine", 2)
 
     whole = [(f"NTT ({b}, 2^{log_n})", random_field(rng, (b, 1 << log_n), dev),
               log_n, False, None) for b, log_n in TIMED]
     whole.append((f"iNTT ({rows_n}, 2^14)",) + plan_inputs["intt"])
     whole.append((f"coset LDE block ({block}, 2^17)",) + plan_inputs["lde"])
+    whole.append((f"machine coset transform ({m_rows}, 2^20)",)
+                 + plan_inputs["machine"])
     for label, x, log_n, inverse, shift in whole:
         mads = sum(k1_mads(*st[1:]) for st in
                    cuda_ntt.plan(x, log_n, inverse, shift, S) if st[0] == "k1")
@@ -371,7 +396,7 @@ class StageTimer:
     which run inside the stages), by wrapping each with synchronizing host
     timers while active."""
 
-    def __init__(self):
+    def __init__(self, extra=()):
         from vectorx_tpu_torch.hash import poseidon
         from vectorx_tpu_torch.stark import prover, stages
         from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir
@@ -386,7 +411,7 @@ class StageTimer:
             (stages, "fri_commit_layer"), (stages, "fri_fold"),
             (stages, "fri_final_coeffs"), (stages, "grind"),
             (stages, "open_positions"), (ntt_mod, "_transform"),
-            (poseidon, "permute")]
+            (poseidon, "permute"), *extra]
         self.times = {}
         self._saved = []
 
@@ -452,29 +477,25 @@ def prove_and_check(name, air, cfg, dev, card):
 
     trace = air.build_trace()
     timer = StageTimer()
-    for run in ("cold", "warm, stage-timed"):
-        before = sum(cuda_ntt.LAUNCHES.values())
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        if run == "cold":
-            proof = prove(air, trace, cfg, device=dev)
-        else:
-            with timer:
-                proof = prove(air, trace, cfg, device=dev)
-        torch.cuda.synchronize()
-        t_prove = time.perf_counter() - t0
-        grew = sum(cuda_ntt.LAUNCHES.values()) - before
-        if grew <= 0:
-            raise AssertionError(f"{name}: no NTT kernel launched in prove")
-        peak = torch.cuda.max_memory_allocated(dev)
-        t0 = time.perf_counter()
-        ok = verify(air, proof, cfg, device=dev)
-        t_verify = time.perf_counter() - t0
-        if not ok:
-            raise AssertionError(f"{name}: verify rejected the proof ({run})")
-        log(f"phase 3: {name} {run}: prove {t_prove:.3f} s, verify "
-            f"{t_verify:.3f} s, peak device memory {peak / 2**30:.3f} GiB, "
-            f"{grew} kernel launches  [{card}]")
+    before = sum(cuda_ntt.LAUNCHES.values())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with timer:
+        proof = prove(air, trace, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    grew = sum(cuda_ntt.LAUNCHES.values()) - before
+    if grew <= 0:
+        raise AssertionError(f"{name}: no NTT kernel launched in prove")
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    ok = verify(air, proof, cfg, device=dev)
+    t_verify = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"{name}: verify rejected the proof")
+    log(f"phase 3: {name}, stage-timed: prove {t_prove:.3f} s, verify "
+        f"{t_verify:.3f} s, peak device memory {peak / 2**30:.3f} GiB, "
+        f"{grew} kernel launches  [{card}]")
     log(f"phase 3: {name} stage seconds (NTT and Poseidon run inside the "
         f"stages): {timer.summary()}  [{card}]")
     d = proof_to_json(proof)
@@ -616,9 +637,12 @@ def phase_header_range(dev, card: str) -> dict:
     from vectorx_tpu_torch.stark.serialize import (proof_from_json,
                                                    proof_to_json)
 
-    # the reference deployment's header_range_256 with 300 authorities and
-    # headers cycling through 100/10/60/25 % of a 2048 B bound
-    tree, auth, max_header = 256, 300, 35840
+    # the reference deployment's header_range with 300 authorities and
+    # headers cycling through 100/10/60/25 % of a 2048 B bound, at tree 8
+    # (the deployment's is 256) so that the whole script fits its limit;
+    # at trees 2 and 4 this chain's circuit and dummy outputs differ, in
+    # the JAX package too
+    tree, auth, max_header = 8, 300, 35840
     base, frac = 2048 - 180, (100, 10, 60, 25)
     t0 = time.perf_counter()
     chain = FixtureChain(seed=19, num_blocks=3 * tree + 2,
@@ -711,9 +735,26 @@ def phase_header_range(dev, card: str) -> dict:
 # Phase 8: byte identity of the component proofs, CUDA against CPU
 # ---------------------------------------------------------------------------
 
+def reference_proof_json(air, trace_u64, config):
+    """The JAX reference's proof of this statement, as the golden fixtures
+    the tests load hold it (`tests/fixtures/proofs`, keyed by
+    `tests/_proofcache.py::_key`), or None when there is none."""
+    import gzip
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from _proofcache import FIXTURE_DIR, _key
+
+    path = os.path.join(FIXTURE_DIR, _key(air, trace_u64, config) + ".json.gz")
+    if not os.path.exists(path):
+        return None
+    with gzip.open(path, "rt") as f:
+        return json.load(f)
+
+
 def phase_identity(dev, card: str) -> None:
-    from vectorx_tpu_torch.circuits.zk_header_range import \
-        prove_header_range_zk
+    from vectorx_tpu_torch.circuits import zk_header_range
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.hash.sha256 import chained_hash
     from vectorx_tpu_torch.io.abi import HeaderRangeInput
@@ -729,18 +770,283 @@ def phase_identity(dev, card: str) -> None:
                                     num_queries=12, final_poly_len=4,
                                     pow_bits=0))
     t0 = time.perf_counter()
-    proofs = [prove_header_range_zk(chain, inp, tree_size=2,
-                                    max_authorities=8, config=cfg,
-                                    device=device)
-              for device in (dev, "cpu")]
-    texts = [[json.dumps(proof_to_json(p))
-              for p in zk.header_proofs + zk.sha_proofs] for zk in proofs]
-    if texts[0] != texts[1]:
-        raise AssertionError("tree=2 header_range: CUDA and CPU component "
-                             "proofs differ")
-    log(f"phase 8: tree=2 header_range: {len(texts[0])} component proofs, "
-        f"JSON identical on CUDA and CPU ({sum(map(len, texts[0]))} bytes, "
+    proved = []
+    orig = zk_header_range.prove
+
+    def record(air, trace, config, *, device):
+        proof = orig(air, trace, config, device=device)
+        proved.append((air, trace, proof))
+        return proof
+
+    zk_header_range.prove = record
+    try:
+        zk_header_range.prove_header_range_zk(chain, inp, tree_size=2,
+                                              max_authorities=8, config=cfg,
+                                              device=dev)
+    finally:
+        zk_header_range.prove = orig
+    size = 0
+    for air, trace, proof in proved:
+        ref = reference_proof_json(air, trace, cfg)
+        if ref is None:
+            raise AssertionError(f"no reference proof of the tree=2 "
+                                 f"{type(air).__name__} statement")
+        text = json.dumps(proof_to_json(proof))
+        if text != json.dumps(ref):
+            raise AssertionError(f"tree=2 header_range: the CUDA "
+                                 f"{type(air).__name__} proof differs from "
+                                 f"the reference's")
+        size += len(text)
+    log(f"phase 8: tree=2 header_range: {len(proved)} component proofs on "
+        f"CUDA, JSON identical to the JAX reference's ({size} bytes, "
         f"{time.perf_counter() - t0:.2f} s)  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the streamed prover and the machine proof, CUDA against CPU
+# ---------------------------------------------------------------------------
+
+def bus_air():
+    """The LogUp bus statement of `tests/test_bus.py` (`BusAir`) on the
+    port: value X written once with fanout 2 and read twice, Y written
+    once and read once, across distant rows of a 2^6-row trace."""
+    import numpy as np
+
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.stark.air import Air, BusPort
+
+    x, y = (123456789, 987654321), (42, 7)
+    writes = {5: (1, x, 2), 40: (2, y, 1)}
+    reads = {20: (1, x), 30: (1, x), 50: (2, y)}
+
+    class BusAir(Air):
+        def __init__(self):
+            super().__init__(width=4, log_n=6, constraint_degree=2)
+
+        def bus_ports(self):
+            return [BusPort(value_cols=(0, 1), addr_col=0, mult_col=1),
+                    BusPort(value_cols=(2, 3), addr_col=2, mult_col=3)]
+
+        def constant_columns(self):
+            cols = np.zeros((4, self.n), dtype=np.uint64)
+            for row, (addr, _v, fanout) in writes.items():
+                cols[0, row], cols[1, row] = addr, fanout
+            for row, (addr, _v) in reads.items():
+                cols[2, row], cols[3, row] = addr, gl.P - 1
+            return cols
+
+        def transition(self, alg, local, nxt, public, consts=None):
+            return []
+
+        def build_trace(self):
+            tr = np.zeros((4, self.n), dtype=np.uint64)
+            for row, (_a, (v0, v1), _f) in writes.items():
+                tr[0, row + 1], tr[1, row + 1] = v0, v1
+            for row, (_a, (v0, v1)) in reads.items():
+                tr[2, row + 1], tr[3, row + 1] = v0, v1
+            return tr
+
+    return BusAir()
+
+
+def phase_streamed(dev, card: str) -> None:
+    import torch
+
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.recursion.aggregate import aggregate_prove
+    from vectorx_tpu_torch.stark import FibonacciAir, StarkConfig, prove
+    from vectorx_tpu_torch.stark.prover import prove_streamed
+    from vectorx_tpu_torch.stark.serialize import proof_to_json
+
+    def text(proof):
+        return json.dumps(proof_to_json(proof))
+
+    # the configs of tests/test_bus.py and tests/test_stark.py
+    for name, air, cap_h in (("bus AIR of tests/test_bus.py", bus_air(), 0),
+                             ("FibonacciAir(log_n=8)", FibonacciAir(8), 1)):
+        cfg = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=cap_h,
+                                        num_queries=12, final_poly_len=4,
+                                        pow_bits=0))
+        t0 = time.perf_counter()
+        trace = air.build_trace()
+        full = text(prove(air, trace, cfg, device=dev))
+        streamed = text(prove_streamed(air, trace, cfg, device=dev))
+        on_cpu = text(prove_streamed(air, trace, cfg, device="cpu"))
+        if streamed != full:
+            raise AssertionError(f"{name}: CUDA prove_streamed != prove")
+        if streamed != on_cpu:
+            raise AssertionError(f"{name}: prove_streamed CUDA != CPU")
+        log(f"phase 4: {name}: prove_streamed == prove on CUDA, and CUDA "
+            f"== CPU streamed ({len(full)} bytes, "
+            f"{time.perf_counter() - t0:.2f} s)")
+
+    # the aggregation of tests/test_recursion_aggregate.py's first child:
+    # one machine proof of 1047 rows (log_n 11), on CUDA and on the CPU
+    cfg = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=1, num_queries=2,
+                                    final_poly_len=2, pow_bits=1))
+    child = FibonacciAir(log_n=3)
+    child_proof = prove(child, child.build_trace(), cfg, device=dev)
+    texts, secs = [], []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        agg = aggregate_prove([child], [child_proof], cfg, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        texts.append(text(agg.proof))
+    rows = agg.machine_air.program.n_rows
+    if (rows, agg.machine_air.log_n) != (1047, 11):
+        raise AssertionError(f"FibonacciAir(3) machine: {rows} rows")
+    if texts[0] != texts[1]:
+        raise AssertionError("FibonacciAir(3) aggregation: machine proof "
+                             "differs on CUDA and CPU")
+    log(f"phase 4: FibonacciAir(3) aggregation, {rows} machine rows (log_n "
+        f"11): machine proof JSON identical on CUDA ({secs[0]:.2f} s) and "
+        f"CPU ({secs[1]:.2f} s on the host)  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the aggregated ZK rotate at full width
+# ---------------------------------------------------------------------------
+
+def phase_rotate(dev, card: str) -> dict:
+    import torch
+
+    from vectorx_tpu_torch.circuits import DummyRotate, zk_rotate
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import RotateInput
+    from vectorx_tpu_torch.io.fixtures import FixtureChain
+    from vectorx_tpu_torch.recursion import aggregate, progcache
+    from vectorx_tpu_torch.recursion.machine import MachineAir
+    from vectorx_tpu_torch.stark import StarkConfig, prover, stages
+    from vectorx_tpu_torch.stark.serialize import (proof_from_json,
+                                                   proof_to_json)
+
+    # the deployment's MAX_AUTHORITY_SET_SIZE on the chain of
+    # tests/test_zk_rotate.py, at the production FRI config
+    auth = 300
+    t0 = time.perf_counter()
+    chain = FixtureChain(seed=19, num_blocks=12, epoch_length=6,
+                         authorities_per_era=lambda e: auth)
+    inp = RotateInput(1, chained_hash(chain.era_pubkeys(1))).encode()
+    want = DummyRotate().run(inp, chain)
+    cfg = StarkConfig()
+    log(f"phase 9: fixture chain, {auth} authorities, DummyRotate output "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    zk = zk_rotate.prove_rotate_zk(chain, inp, max_authorities=auth,
+                                   config=cfg, device=dev)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    if zk.output_bytes != want:
+        raise AssertionError("prove_rotate_zk output != DummyRotate output")
+    t0 = time.perf_counter()
+    if not zk_rotate.verify_rotate_zk(zk, auth, cfg, device=dev,
+                                      rng=random.Random(9)):
+        raise AssertionError("verify_rotate_zk rejected the proof")
+    t_cver = time.perf_counter() - t0
+    airs = zk_rotate.aggregate_children(zk.header_bytes, zk.header_hash,
+                                        zk.commitment)
+    log(f"phase 9: prove_rotate_zk: header {len(zk.header_bytes)} B, "
+        f"children (AIR, log_n, width) "
+        f"{[(type(a).__name__, a.log_n, a.width) for a in airs]}, "
+        f"{t_comp:.3f} s; verify_rotate_zk accepted in {t_cver:.3f} s; "
+        f"output == DummyRotate  [{card}]")
+
+    # the aggregation, every stage timed; the host bytes of the HostTrees
+    # and of the FRI codewords the streamed prover keeps on the host
+    host = {"trees": 0, "codewords": 0}
+    from_device = stages.HostTree.__dict__["from_device"]
+    spill = stages.spill_codeword
+
+    def tree_rec(tree):
+        t = from_device.__get__(None, stages.HostTree)(tree)
+        host["trees"] += t.nbytes()
+        return t
+
+    def spill_rec(c):
+        out = spill(c)
+        host["codewords"] += out[0].nbytes + out[1].nbytes
+        return out
+
+    timer = StageTimer(extra=[
+        (aggregate, "_build_tape"), (aggregate, "compile_tape"),
+        (MachineAir, "build_trace"), (MachineAir, "constant_columns"),
+        (prover, "prove_streamed"), (prover, "preprocess"),
+        (stages, "commit_streamed"), (stages, "coset_eval_rows"),
+        (stages, "deep_compose_coset"), (stages, "to_coeffs"),
+        (stages, "open_positions_host")])
+    stages.HostTree.from_device = staticmethod(tree_rec)
+    stages.spill_codeword = spill_rec
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        with timer:
+            agg = zk_rotate.aggregate_rotate_proof(zk, cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        stages.HostTree.from_device = from_device
+        stages.spill_codeword = spill
+    t_agg = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    prog = progcache.get(aggregate._stmt_key(airs, cfg))[0]
+    machine = MachineAir(prog)
+    if (prog.n_rows, machine.log_n) != (724556, 20):
+        raise AssertionError(f"machine program: {prog.n_rows} rows, log_n "
+                             f"{machine.log_n} (want 724556, 20)")
+    if "prove_streamed" not in timer.times:
+        raise AssertionError("the machine proof did not take prove_streamed")
+    cols = prover._commit_cols(machine)
+    standing = cols * (machine.n << cfg.rate_bits) * 8
+    t = timer.times
+    log(f"phase 9: aggregate_rotate_proof: {t_agg:.3f} s; machine "
+        f"{prog.n_rows} rows (log_n {machine.log_n}), {cols} committed "
+        f"columns x 2^{machine.log_n + cfg.rate_bits} points "
+        f"({standing / 2**30:.3f} GiB as standing LDEs), streamed; peak "
+        f"device memory {peak / 2**30:.3f} GiB; host memory: HostTrees "
+        f"{host['trees'] / 2**30:.3f} GiB, FRI codewords "
+        f"{host['codewords'] / 2**30:.3f} GiB  [{card}]")
+    log(f"phase 9: tape {t['_build_tape']:.3f} s, compile_tape "
+        f"{t['compile_tape']:.3f} s, trace build "
+        f"{t['MachineAir.build_trace']:.3f} s, constant columns "
+        f"{t['MachineAir.constant_columns']:.3f} s, prove_streamed "
+        f"{t['prove_streamed']:.3f} s (Poseidon permute {t['permute']:.3f} s,"
+        f" {t['permute'] / t['prove_streamed'] * 100:.1f} % of it)  [{card}]")
+    log(f"phase 9: stage seconds (stages overlap: NTT and Poseidon run "
+        f"inside them, the coset stages inside prove_streamed): "
+        f"{timer.summary()}  [{card}]")
+
+    # accept first: the verifiers turn any exception into a rejection, so
+    # a rejection counts only after the same verifier accepted
+    t0 = time.perf_counter()
+    ok = zk_rotate.verify_rotate_zk_aggregated(agg, auth, cfg, device=dev,
+                                               rng=random.Random(10))
+    t_ver = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("verify_rotate_zk_aggregated rejected the proof")
+    launches = read_launches("aggregated rotate")
+    t0 = time.perf_counter()
+    bad = dataclasses.replace(agg, header_hash=bytes(32))
+    if zk_rotate.verify_rotate_zk_aggregated(bad, auth, cfg, device=dev,
+                                             rng=random.Random(10)):
+        raise AssertionError("tampered header hash accepted")
+    outer = proof_from_json(proof_to_json(agg.aggregated_proof))
+    c0, c1 = outer.fri_proof.final_coeffs[0]
+    outer.fri_proof.final_coeffs[0] = ((c0 + 1) % gl.P, c1)
+    bad = dataclasses.replace(agg, aggregated_proof=outer)
+    if zk_rotate.verify_rotate_zk_aggregated(bad, auth, cfg, device=dev,
+                                             rng=random.Random(10)):
+        raise AssertionError("tampered FRI final coefficient accepted")
+    log(f"phase 9: verify_rotate_zk_aggregated accepted in {t_ver:.3f} s; "
+        f"then a tampered header hash and a tampered FRI final coefficient "
+        f"rejected ({time.perf_counter() - t0:.3f} s)  [{card}]")
+    log(f"phase 9: kernel launches on the aggregated rotate path (component "
+        f"proofs, aggregation and verifies): {launches}")
+    return launches
 
 
 def main() -> int:
@@ -787,15 +1093,15 @@ def main() -> int:
     log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    # the prover path of the first slice, one step shallower than there
+    # the prover path of the first slice, three steps shallower than there
     # (2^21 / 2^20 rows) so that the whole script fits its time limit
     cfg = StarkConfig(fri=FriConfig())
     rng = np.random.default_rng(0)
-    values = rng.integers(0, 1 << 16, size=(8, (1 << 19) - 1),
+    values = rng.integers(0, 1 << 16, size=(8, (1 << 17) - 1),
                           dtype=np.uint64)
-    statements = [("FibonacciAir(log_n=20)", FibonacciAir(log_n=20)),
-                  ("RangeCheckAir(log_n=19, bits=16, V=8)",
-                   RangeCheckAir(19, 16, values))]
+    statements = [("FibonacciAir(log_n=18)", FibonacciAir(log_n=18)),
+                  ("RangeCheckAir(log_n=17, bits=16, V=8)",
+                   RangeCheckAir(17, 16, values))]
     t0 = time.perf_counter()
     reset_launches()
     for name, air in statements:
@@ -809,9 +1115,9 @@ def main() -> int:
                                       pow_bits=0))
     vals = np.random.default_rng(11).integers(0, 1 << 6, size=(4, 255),
                                               dtype=np.uint64)
-    for name, air in (("FibonacciAir(log_n=8)", FibonacciAir(log_n=8)),
-                      ("RangeCheckAir(log_n=8, bits=6, V=4)",
-                       RangeCheckAir(8, 6, vals))):
+    # FibonacciAir(8) is held CUDA against CPU in `phase_streamed`
+    for name, air in (("RangeCheckAir(log_n=8, bits=6, V=4)",
+                       RangeCheckAir(8, 6, vals)),):
         t0 = time.perf_counter()
         a = json.dumps(proof_to_json(prove(air, air.build_trace(), small,
                                            device=dev)))
@@ -821,6 +1127,7 @@ def main() -> int:
             raise AssertionError(f"{name}: CUDA and CPU proofs differ")
         log(f"phase 4: {name}: CUDA and CPU proof JSON identical "
             f"({len(a)} bytes, {time.perf_counter() - t0:.2f} s)")
+    phase_streamed(dev, card)
 
     phase_hashes(dev, card)
     phase_ed25519(dev, card)
@@ -828,9 +1135,12 @@ def main() -> int:
     hr_launches = phase_header_range(dev, card)
     log(f"phase 7: {time.perf_counter() - t0:.2f} s")
     phase_identity(dev, card)
+    t0 = time.perf_counter()
+    rot_launches = phase_rotate(dev, card)
+    log(f"phase 9: {time.perf_counter() - t0:.2f} s")
 
     for name in launches:
-        launches[name] += hr_launches[name]
+        launches[name] += hr_launches[name] + rot_launches[name]
     # each kernel at the header_range path's (512, 2^17) coset LDE block,
     # the main path's largest: K1's column step, K2's transpose
     t1 = k["timed"]["K1 (512, 2^17) column step"]

@@ -180,10 +180,11 @@ def test_forged_sha256_statement_rejected(proofs):
                              device="cpu")
 
 
-def test_blake2b_chunk_under_the_h100_streaming_bound():
+def test_blake2b_chunk_under_the_h100_streaming_bound(monkeypatch):
     """A chunk at the header_range row budget (2^14 rows, production FRI):
     the reference streams it, the port proves it unstreamed; a statement
-    over the port's bound is still refused.  Shapes only, no proof."""
+    over the port's bound goes to `prove_streamed` (the call is recorded,
+    not proven)."""
     msgs = [bytes(2048)] * 40                     # 40 x 401 rows
     digests = [b"\x00" * 32] * len(msgs)
     tair = Blake2bAir.statement(msgs, digests)
@@ -195,6 +196,10 @@ def test_blake2b_chunk_under_the_h100_streaming_bound():
     assert tprover._commit_cols(tair) == jprover._commit_cols(jair) == 2853
     big = Blake2bAir.statement(msgs * 9, digests * 9)   # 2^17 rows
     assert tprover._use_streaming(big, prod)
-    with pytest.raises(NotImplementedError, match="prove_streamed"):
-        tstark.prove(big, np.zeros((0, 0), dtype=np.uint64), prod,
-                     device="cpu")
+    calls = []
+    monkeypatch.setattr(tprover, "prove_streamed",
+                        lambda air, trace, config, *, device:
+                        calls.append((air, config, device)) or "streamed")
+    assert tstark.prove(big, np.zeros((0, 0), dtype=np.uint64), prod,
+                        device="cpu") == "streamed"
+    assert calls == [(big, prod, "cpu")]

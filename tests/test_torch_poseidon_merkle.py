@@ -45,12 +45,36 @@ def test_generated_parameters_match_jax():
                             for a in jpv._fast_partial_params()[3]])]
 
 
-def test_permute_matches_jax():
-    x = _states(1, 16)
+@pytest.mark.parametrize("rows", [16, 256])   # 256: the host matmul path
+def test_permute_matches_jax(rows):
+    assert (rows >= tpv.MATMUL_MIN_STATES) == (rows == 256)
+    x = _states(1, rows)
     got = tgl.to_u64(tpv.permute(tgl.from_u64(x, "cpu")))
     want = jgl.to_u64(*jpv.permute(*jgl.from_u64(x)))
     assert np.array_equal(got, want)
     assert _ints(got[:3]) == [jpy.permute([int(v) for v in r]) for r in x[:3]]
+
+
+def test_host_matmul_equals_field_products_at_u64_edges():
+    """`_matmul_cpu` (exact float64 limb matmuls) against the field-op
+    products it replaces, on states made only of u64 edge values."""
+    rng = np.random.default_rng(5)
+    edge = np.array([0, 1, 2**32 - 1, 2**32, P - 1, P, P + 1, 2**63,
+                     2**64 - 2**32, 2**64 - 1], dtype=np.uint64)
+    x = tgl.from_u64(rng.choice(edge, (128, 12)), "cpu")
+    prm = tpv._dev_params(torch.device("cpu"))
+    for m, limbs in (("mds", "mds_T"), ("sigma", "sigma_T")):
+        assert np.array_equal(
+            tgl.to_u64(tpv._matmul_cpu(x, prm[limbs])),
+            tgl.to_u64(tpv._mds_layer(x, prm[m])))
+    for i in (0, tpv.PARTIAL_ROUNDS - 1):
+        v = tgl.field_sum(tgl.mul(x, prm["v"][i]), -1)[..., None]
+        assert np.array_equal(tgl.to_u64(tpv._matmul_cpu(x, prm["v_T"][i])),
+                              tgl.to_u64(v))
+        w = tgl.mul(x[..., :1], prm["w"][i])
+        assert np.array_equal(
+            tgl.to_u64(tpv._matmul_cpu(x[..., :1], prm["w_T"][i])),
+            tgl.to_u64(w))
 
 
 @pytest.mark.parametrize("k", [3, 8, 13, 27])

@@ -6,8 +6,11 @@ against the JAX package's.
   RangeCheck statement of `tests/test_lookup.py` (both reference proofs load
   from the golden fixtures through the proof cache).
 * Each package's verifier accepts the other's proof (carried as JSON).
-* Tampering, an invalid trace, bus ports and statements the reference would
-  stream are refused.
+* The port's coset-streamed prover gives the same JSON as its unstreamed
+  prover and as the reference's `prove_streamed`, for FibonacciAir(4), the
+  RangeCheck statement and the bus AIR; `prove` hands a statement past
+  the streaming bound to it.
+* Tampering and an invalid trace are refused.
 * Importing the port loads neither JAX nor the JAX package.
 """
 
@@ -139,21 +142,72 @@ def test_invalid_traces_fail_the_prover():
         tstark.prove(rair, trace, CFG, device="cpu")
 
 
-class _BusAir(Air):
-    def __init__(self):
-        super().__init__(width=2, log_n=4)
+def _streamed_statements():
+    from test_bus import BusAir as JBusAir
+    from test_torch_bus import BusAir
 
-    def bus_ports(self):
-        return [BusPort(value_cols=(0, 1), addr_col=0, mult_col=1)]
+    vals = _range_values()
+    bus_cfg = dict(KNOBS, cap_height=0)       # tests/test_bus.py's config
+    return {
+        "fib": (tstark.FibonacciAir(log_n=4), jstark.FibonacciAir(log_n=4),
+                KNOBS),
+        "range": (tstark.RangeCheckAir(8, 6, vals),
+                  JRangeCheckAir(8, 6, vals), KNOBS),
+        "bus": (BusAir(), JBusAir(), bus_cfg),
+    }
+
+
+@pytest.fixture(scope="module")
+def streamed():
+    """name -> (port prove_streamed JSON, port prove JSON, reference JSON).
+
+    The reference is its `prove` (golden fixtures through the proof
+    cache): `tests/test_stark.py::test_streamed_prover_bit_exact` holds its
+    streamed proofs equal to those.  Its `prove_streamed` itself runs on
+    FibonacciAir(4) in `test_fib_streamed_matches_reference_streamed`; on
+    a statement with constant columns under its streaming bound it cannot
+    run (its preprocessed tree is then not a host tree)."""
+    from vectorx_tpu_torch.stark.prover import prove_streamed
+
+    out = {}
+    for name, (tair, jair, knobs) in _streamed_statements().items():
+        cfg = tstark.StarkConfig(fri=FriConfig(**knobs))
+        trace = tair.build_trace()
+        out[name] = tuple(json.dumps(x) for x in (
+            tser.proof_to_json(prove_streamed(tair, trace, cfg,
+                                              device="cpu")),
+            tser.proof_to_json(tstark.prove(tair, trace, cfg, device="cpu")),
+            jser.proof_to_json(jstark.prove(
+                jair, trace, jstark.StarkConfig(fri=JFriConfig(**knobs))))))
+    return out
+
+
+@pytest.mark.parametrize("name", ["fib", "range", "bus"])
+def test_streamed_proof_matches_unstreamed_and_reference(streamed, name):
+    port_streamed, port_full, ref = streamed[name]
+    assert port_streamed == port_full
+    assert port_streamed == ref
+
+
+def test_fib_streamed_matches_reference_streamed(streamed):
+    from vectorx_tpu.stark.prover import prove_streamed as jprove_streamed
+
+    air = jstark.FibonacciAir(log_n=4)
+    ref = jprove_streamed(air, air.build_trace(), JCFG)
+    assert json.dumps(jser.proof_to_json(ref)) == streamed["fib"][0]
 
 
 def test_bus_ports_not_ported_yet():
-    air = _BusAir()
-    with pytest.raises(NotImplementedError):
-        tstark.prove(air, np.zeros((2, 16), dtype=np.uint64), CFG,
-                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstark.verify(air, None, CFG, device="cpu")
+    """Bus ports (once refused here): the bus AIR of `tests/test_bus.py`
+    proves and verifies on the port, and a proof checked against another
+    program's preprocessed columns is rejected."""
+    from test_torch_bus import BusAir
+
+    air = BusAir()
+    proof = tstark.prove(air, air.build_trace(), CFG, device="cpu")
+    assert tstark.verify(air, proof, CFG, device="cpu")
+    assert not tstark.verify(BusAir(corrupt_addr=30), proof, CFG,
+                             device="cpu")
 
 
 class _WideAir(Air):
@@ -164,14 +218,37 @@ class _WideAir(Air):
         super().__init__(width=1024, log_n=22)
 
 
-def test_statement_the_reference_would_stream_is_refused():
+def test_statement_the_reference_would_stream_is_refused(monkeypatch):
+    """Past the port's bound `prove` hands the statement to
+    `prove_streamed` (recorded here, not proven); under a lowered bound
+    a small statement takes the streamed path and still gives the
+    unstreamed proof."""
     from vectorx_tpu_torch.stark import prover as tprover
 
     assert tprover._commit_cols(_WideAir()) << 25 > \
         tprover.STREAM_THRESHOLD_ELEMS
-    with pytest.raises(NotImplementedError, match="prove_streamed"):
-        tstark.prove(_WideAir(), np.zeros((0, 0), dtype=np.uint64),
-                     tstark.StarkConfig(), device="cpu")
+    calls = []
+    orig = tprover.prove_streamed
+
+    def record(air, trace, config, *, device):
+        calls.append(air)
+        return "streamed"
+
+    monkeypatch.setattr(tprover, "prove_streamed", record)
+    wide = _WideAir()
+    assert tstark.prove(wide, np.zeros((0, 0), dtype=np.uint64),
+                        tstark.StarkConfig(), device="cpu") == "streamed"
+    assert calls == [wide]
+
+    air = tstark.FibonacciAir(log_n=5)
+    full = tser.proof_to_json(tstark.prove(air, air.build_trace(), CFG,
+                                           device="cpu"))
+    monkeypatch.setattr(tprover, "prove_streamed",
+                        lambda *a, **k: calls.append(a[0]) or orig(*a, **k))
+    monkeypatch.setattr(tprover, "STREAM_THRESHOLD_ELEMS", 1 << 8)
+    proof = tstark.prove(air, air.build_trace(), CFG, device="cpu")
+    assert calls == [wide, air]
+    assert json.dumps(tser.proof_to_json(proof)) == json.dumps(full)
 
 
 def test_port_imports_without_jax():
@@ -188,10 +265,13 @@ def test_port_imports_without_jax():
         "       'circuits.justification', 'circuits.rotate', 'circuits.dummy',\n"
         "       'curves.ed25519', 'curves.ed25519_batch', 'hash.blake2b',\n"
         "       'hash.sha256', 'io.abi', 'io.fixtures', 'scale',\n"
-        "       'stark.blake2b_air', 'stark.sha256_air'}\n"
+        "       'stark.blake2b_air', 'stark.sha256_air',\n"
+        "       'stark.poseidon_air', 'circuits.zk_rotate', 'recursion',\n"
+        "       'recursion.ssa', 'recursion.shadow', 'recursion.machine',\n"
+        "       'recursion.progcache', 'recursion.aggregate'}\n"
         "missing = {'vectorx_tpu_torch.' + m for m in new} - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 40, names\n"
+        "assert len(names) >= 48, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

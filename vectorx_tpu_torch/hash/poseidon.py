@@ -233,6 +233,20 @@ def _dev_params(device):
         prm = _DEV[key] = {
             "rc": t(rc).reshape(N_ROUNDS, WIDTH), "mds": t(mds),
             "v": t(rho_v), "w": t(rho_w), "c": t(c_prime), "sigma": t(sigma)}
+        if dev.type == "cpu":
+            # the matrices as 16-bit limbs, (inputs, outputs) per limb,
+            # for the float64 matmuls of `_matmul_cpu`
+            def limbs(m):
+                m = np.array(m, dtype=np.uint64)
+                return torch.stack([
+                    torch.from_numpy(((m >> np.uint64(16 * b))
+                                      & np.uint64(0xFFFF)).astype(np.float64))
+                    for b in range(4)])
+
+            prm.update({"mds_T": limbs(np.array(mds, dtype=object).T),
+                        "sigma_T": limbs(np.array(sigma, dtype=object).T),
+                        "v_T": [limbs([[x] for x in row]) for row in rho_v],
+                        "w_T": [limbs([row]) for row in rho_w]})
     return prm
 
 
@@ -252,27 +266,83 @@ def _mds_layer(s, m):
     return gl.field_sum(gl.mul(s[..., None, :], m), -1)
 
 
+# Host batches of at least this many states take `_matmul_cpu` (faster
+# from about 64 states on; below, its fixed cost per call dominates).
+MATMUL_MIN_STATES = 64
+
+
+def _matmul_cpu(s: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
+    """s (..., K) times a constant (K, R) field matrix (K <= 16) on the
+    CPU, exact, as eight float64 matmuls: the 32-bit halves of s against
+    the 16-bit limbs of the matrix, each product below 2^48 and each
+    K-term sum an integer below 2^52, so float64 holds every partial sum
+    exactly.  The sums are carried through 16-bit digits into a 128-bit
+    value plus a top word t < 2^8, folded with 2^128 = -2^32 (mod p).
+    Equal mod p to `_mds_layer`."""
+    halves = ((s & gl.M32).double(), ((s >> 32) & gl.M32).double())
+    parts = {}
+    for a, h in enumerate(halves):
+        for b in range(4):
+            k = 2 * a + b                      # shift 16·k
+            d = (h @ limbs[b]).long()
+            parts[k] = d if k not in parts else parts[k] + d
+    carry = torch.zeros_like(parts[0])
+    digits = []
+    for k in range(8):
+        v = carry + parts[k] if k in parts else carry
+        digits.append(v & 0xFFFF)
+        carry = v >> 16
+    lo = digits[0] | (digits[1] << 16) | (digits[2] << 32) | (digits[3] << 48)
+    hi = digits[4] | (digits[5] << 16) | (digits[6] << 32) | (digits[7] << 48)
+    return gl.sub(gl._reduce128(lo, hi), carry << 32)
+
+
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation on a (..., 12) state."""
     assert state.shape[-1] == WIDTH
     prm = _dev_params(state.device)
     rc = prm["rc"]
     half = FULL_ROUNDS // 2
+    if state.is_cuda or state[..., 0].numel() < MATMUL_MIN_STATES:
+        def mds(x):
+            return _mds_layer(x, prm["mds"])
+
+        def sigma(x):
+            return _mds_layer(x, prm["sigma"])
+
+        def v_dot(x, i):
+            return gl.field_sum(gl.mul(x, prm["v"][i]), -1)[..., None]
+
+        def w_mul(x0, i):
+            return gl.mul(x0, prm["w"][i])
+    else:
+        # exact float64 matmuls on the host (`_matmul_cpu`), equal mod p
+        def mds(x):
+            return _matmul_cpu(x, prm["mds_T"])
+
+        def sigma(x):
+            return _matmul_cpu(x, prm["sigma_T"])
+
+        def v_dot(x, i):
+            return _matmul_cpu(x, prm["v_T"][i])
+
+        def w_mul(x0, i):
+            return _matmul_cpu(x0, prm["w_T"][i])
+
     s = state
     for r in range(half):
-        s = _mds_layer(_sbox(gl.add(s, rc[r])), prm["mds"])
+        s = mds(_sbox(gl.add(s, rc[r])))
     # sparse partial rounds: +c', sbox on lane 0, rho matvec (out0 = v.s,
     # out_{1:} = s_{1:} + w.s0); the dense residue is one sigma matvec
     for i in range(PARTIAL_ROUNDS):
         s = gl.add(s, prm["c"][i])
         s0 = _sbox(s[..., :1])
         s = torch.cat([s0, s[..., 1:]], dim=-1)
-        out0 = gl.field_sum(gl.mul(s, prm["v"][i]), -1)[..., None]
-        s = torch.cat([out0, gl.add(s[..., 1:], gl.mul(s0, prm["w"][i]))],
+        s = torch.cat([v_dot(s, i), gl.add(s[..., 1:], w_mul(s0, i))],
                       dim=-1)
-    s = _mds_layer(s, prm["sigma"])
+    s = sigma(s)
     for r in range(half + PARTIAL_ROUNDS, N_ROUNDS):
-        s = _mds_layer(_sbox(gl.add(s, rc[r])), prm["mds"])
+        s = mds(_sbox(gl.add(s, rc[r])))
     return s
 
 

@@ -7,6 +7,8 @@ torch permutation.  Port of `vectorx_tpu.hash.poseidon_py`.
 
 from __future__ import annotations
 
+from operator import mul
+
 from vectorx_tpu_torch.field.goldilocks import P
 from vectorx_tpu_torch.hash import poseidon as pv
 
@@ -18,8 +20,7 @@ def permute(state: list[int]) -> list[int]:
     r = 0
 
     def mds_layer(s):
-        return [sum(mds[i][j] * s[j] for j in range(pv.WIDTH)) % P
-                for i in range(pv.WIDTH)]
+        return [sum(map(mul, row, s)) % P for row in mds]
 
     for _ in range(pv.FULL_ROUNDS // 2):
         s = [(x + rc[r * pv.WIDTH + i]) % P for i, x in enumerate(s)]

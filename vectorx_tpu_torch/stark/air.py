@@ -10,9 +10,9 @@ algebra and evaluated twice:
 * host-side at the single DEEP point ζ in GF(p^2) (`ExtAlgebra`: Python
   ints).
 
-The LogUp memory bus (`BusPort`) is declared here so AIRs can name it, but
-its constraints are not ported yet: the prover and verifier raise
-`NotImplementedError` for an AIR with bus ports.
+The LogUp memory bus (`BusPort`) lets a row-programmed machine (the
+recursive verifier AIR) move values between distant rows; its constraints
+are synthesized by `bus_transitions` against the same abstract algebras.
 """
 
 from __future__ import annotations
@@ -25,13 +25,23 @@ from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import goldilocks as gl
 
 
+def _device_op(op, host):
+    """A field op on tensors, folded on the host when both operands are
+    Python ints (constants, e.g. a challenge squared)."""
+    def f(a, b):
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            return op(a, b)
+        return host(int(a), int(b)) % gl.P
+    return staticmethod(f)
+
+
 class DeviceAlgebra:
     """Elements are int64 tensors (base field, vectorized) or Python ints
     (constants, folded in by the field ops)."""
 
-    add = staticmethod(gl.add)
-    sub = staticmethod(gl.sub)
-    mul = staticmethod(gl.mul)
+    add = _device_op(gl.add, lambda a, b: a + b)
+    sub = _device_op(gl.sub, lambda a, b: a - b)
+    mul = _device_op(gl.mul, lambda a, b: a * b)
 
     @staticmethod
     def constant(v):
@@ -245,13 +255,49 @@ def _sum_excl_general(alg, bins):
 
 
 def bus_aux_layout(air: Air):
-    """Aux-column count: one running-sum column per (lookup, challenge
-    set).  Returns (helper_base, z_base, n_aux_total) like the reference;
-    an AIR with bus ports raises (the bus is not ported yet)."""
-    if air.bus_ports():
-        raise NotImplementedError("bus ports are not ported yet")
+    """Aux-column indices for the bus: helpers then running sums, after the
+    lookup running-sum block.  Returns (helper_base, z_base, n_aux_total);
+    helper (p, s) sits at helper_base + p·S + s, Z_s at z_base + s."""
     n_lk = len(air.lookups()) * NUM_LOOKUP_SETS
-    return n_lk, n_lk, n_lk
+    ports = air.bus_ports()
+    if not ports:
+        return n_lk, n_lk, n_lk
+    helper_base = n_lk
+    z_base = n_lk + len(ports) * NUM_LOOKUP_SETS
+    return helper_base, z_base, z_base + NUM_LOOKUP_SETS
+
+
+def bus_transitions(alg, local, nxt, aux_local, aux_next, consts, betas,
+                    deltas, air: Air):
+    """Synthesize the bus constraints against an abstract algebra, in a
+    fixed order shared by prover and verifier: for each challenge set s,
+    every port's helper constraint then the running-sum constraint.
+
+        h_{p,s}·(β_s − addr_p − δ_s·v0' − δ_s²·v1') − m_p = 0
+        Z'_s − Z_s − Σ_p h_{p,s} = 0
+    """
+    ports = air.bus_ports()
+    helper_base, z_base, _ = bus_aux_layout(air)
+    out = []
+    for s, (beta, delta) in enumerate(zip(betas, deltas)):
+        b = alg.constant(beta)
+        d1 = alg.constant(delta)
+        d2 = alg.mul(d1, d1)   # algebra-generic so challenges may be symbols
+        hsum = None
+        for p, port in enumerate(ports):
+            h = aux_local[helper_base + p * NUM_LOOKUP_SETS + s]
+            v0 = nxt[port.value_cols[0]]
+            v1 = nxt[port.value_cols[1]]
+            m = consts[port.mult_col]
+            addr = consts[port.addr_col]
+            den = alg.sub(alg.sub(b, addr),
+                          alg.add(alg.mul(d1, v0), alg.mul(d2, v1)))
+            out.append(alg.sub(alg.mul(h, den), m))
+            hsum = h if hsum is None else alg.add(hsum, h)
+        z = aux_local[z_base + s]
+        zn = aux_next[z_base + s]
+        out.append(alg.sub(alg.sub(zn, z), hsum))
+    return out
 
 
 def lookup_boundaries(air: Air):
@@ -263,7 +309,8 @@ def lookup_boundaries(air: Air):
     n_lk = len(air.lookups()) * NUM_LOOKUP_SETS
     z_cols = list(range(n_lk))
     if air.bus_ports():
-        raise NotImplementedError("bus ports are not ported yet")
+        _, z_base, _ = bus_aux_layout(air)
+        z_cols += [z_base + s for s in range(NUM_LOOKUP_SETS)]
     for a in z_cols:
         out.append((0, air.width + a, 0))
         out.append((air.n - 1, air.width + a, 0))

@@ -1,15 +1,15 @@
 """STARK prover: trace commit -> constraint composition -> quotient -> DEEP
 opening -> FRI -> grind -> openings, on one device.
 
-Port of the unstreamed `vectorx_tpu.stark.prover.prove`.  Every stage runs
-eagerly on the device the caller names (`stark.stages`); the Fiat-Shamir
-transcript stays on the host and is identical to the verifier's.  All
-arithmetic is exact, so a proof's JSON equals the reference's for the same
-statement and config.
+Port of `vectorx_tpu.stark.prover`.  Every stage runs eagerly on the
+device the caller names (`stark.stages`); the Fiat-Shamir transcript stays
+on the host and is identical to the verifier's.  All arithmetic is exact,
+so a proof's JSON equals the reference's for the same statement and config.
 
-Not ported yet: `prove_streamed` (a statement above the port's own
-streaming bound, `STREAM_THRESHOLD_ELEMS`, raises `NotImplementedError`) and
-the LogUp memory bus (an AIR with bus ports raises `NotImplementedError`).
+Two schedules give bit-identical proofs: `prove` keeps every committed LDE
+on the device; past `STREAM_THRESHOLD_ELEMS` it hands the statement to
+`prove_streamed`, which evaluates every full-domain stage one
+stride-`blowup` coset at a time and keeps its trees on the host.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ from vectorx_tpu_torch.fri.transcript import Challenger
 from vectorx_tpu_torch.ntt.ntt import _root_of_unity
 from vectorx_tpu_torch.stark import stages
 from vectorx_tpu_torch.stark.air import (NUM_LOOKUP_SETS, Air, DeviceAlgebra,
-                                         bus_aux_layout, lookup_boundaries,
-                                         lookup_transitions)
+                                         bus_aux_layout, bus_transitions,
+                                         lookup_boundaries, lookup_transitions)
 
 P = gl.P
 
@@ -69,8 +69,8 @@ class StarkProof:
 
 # Statements whose committed LDE matrices (trace + aux + constants +
 # quotient chunks, each over the blown-up domain) exceed this many elements
-# need the coset-streamed prover, which is not ported: the port refuses
-# them.  The reference streams above 2^28, a bound sized for a 16 GB TPU.
+# go to the coset-streamed prover (`prove_streamed`).  The reference streams
+# above 2^28, a bound sized for a 16 GB TPU.
 # This one is sized for an 80 GB H100 from measurements (PERF.md): the
 # header_range path's largest statement, a 2^14-row Blake2bAir chunk at the
 # production FriConfig() (2853 columns x 2^17 points, 3.7e8 elements, 2.79
@@ -107,27 +107,28 @@ def _use_streaming(air: Air, config: StarkConfig) -> bool:
         > STREAM_THRESHOLD_ELEMS
 
 
-def _refuse_streaming(air: Air, config: StarkConfig) -> None:
-    if _use_streaming(air, config):
-        raise NotImplementedError(
-            f"{type(air).__name__}(log_n={air.log_n}) commits "
-            f"{_commit_cols(air)} columns x 2^{air.log_n + config.rate_bits}"
-            f" points, above STREAM_THRESHOLD_ELEMS = "
-            f"2^{STREAM_THRESHOLD_ELEMS.bit_length() - 1}: it needs "
-            f"prove_streamed, which is not ported yet")
-
-
-def preprocess(air: Air, config: StarkConfig, consts_u64=None, *, device):
+def preprocess(air: Air, config: StarkConfig, consts_u64=None, *, device,
+               streamed: bool | None = None):
     """Commit to the preprocessed (constant) columns — the AIR's
     verification key.  Returns (tree, lde, coeffs), or Nones when the AIR
-    has no constant columns."""
+    has no constant columns.  Streamed (by default: past the streaming
+    bound), the tree is a HostTree and the lde None (the streamed prover
+    evaluates the columns per coset)."""
     consts = air.constant_columns() if consts_u64 is None else consts_u64
     if consts.shape[0] == 0:
         return None, None, None
-    _refuse_streaming(air, config)
-    coeff, lde, tree = stages.commit_rows(
-        gl.from_u64(consts, device), rate_bits=config.rate_bits,
-        cap_height=config.fri.cap_height)
+    from vectorx_tpu_torch.stark import vk
+
+    if _use_streaming(air, config) if streamed is None else streamed:
+        coeff = stages.to_coeffs(gl.from_u64(consts, device))
+        tree = stages.commit_streamed(coeff, air.log_n + config.rate_bits,
+                                      config.fri.cap_height)
+        lde = None
+    else:
+        coeff, lde, tree = stages.commit_rows(
+            gl.from_u64(consts, device), rate_bits=config.rate_bits,
+            cap_height=config.fri.cap_height)
+    vk.seed_token(air, config, tree.cap_ints())
     return tree, lde, coeff
 
 
@@ -138,16 +139,29 @@ def _exclusive_prefix_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Lookup auxiliary witness
+# Lookup / bus auxiliary witness
 # ---------------------------------------------------------------------------
 
 def aux_witness(air: Air, tr: torch.Tensor, consts: torch.Tensor,
-                betas: list[int]) -> torch.Tensor:
-    """The LogUp running sums Z_{l,s} as (A, n) rows, (lookup, set) order:
+                betas: list[int], deltas: list[int]) -> torch.Tensor:
+    """Every auxiliary column as (A, n) rows: the LogUp running sums
+    Z_{l,s} in (lookup, set) order, then the bus helpers h_{p,s} in
+    (port, set) order, then the bus running sums Z_s:
 
-        Z_{l,s}[i] = Σ_{r<i} [ Σ_j 1/(β_s − a_j[r]) − m[r]/(β_s − t[r]) ].
+        Z_{l,s}[i] = Σ_{r<i} [ Σ_j 1/(β_s − a_j[r]) − m[r]/(β_s − t[r]) ]
+        h_{p,s}·(β_s − addr − δ_s·v0' − δ_s²·v1') = m,  Z_s = Σ_{r<i} Σ_p h.
 
-    Lookups are vectorized by arity; one batched inverse per arity group."""
+    Lookups are vectorized by arity; the bus takes one batched inverse."""
+    rows = []
+    if air.lookups():
+        rows.append(_lookup_sums(air, tr, consts, betas))
+    if air.bus_ports():
+        rows.append(_bus_columns(air, tr, consts, betas, deltas))
+    return torch.cat(rows)
+
+
+def _lookup_sums(air: Air, tr: torch.Tensor, consts: torch.Tensor,
+                 betas: list[int]) -> torch.Tensor:
     lookups = air.lookups()
     S = NUM_LOOKUP_SETS
     n = tr.shape[-1]
@@ -173,6 +187,25 @@ def aux_witness(air: Air, tr: torch.Tensor, consts: torch.Tensor,
     return _exclusive_prefix_sum(lr.reshape(len(lookups) * S, n))
 
 
+def _bus_columns(air: Air, tr: torch.Tensor, consts: torch.Tensor,
+                 betas: list[int], deltas: list[int]) -> torch.Tensor:
+    ports = air.bus_ports()
+    S = NUM_LOOKUP_SETS
+    dev = tr.device
+    addr = consts[[p.addr_col for p in ports]][:, None]       # (Pp, 1, n)
+    mult = consts[[p.mult_col for p in ports]][:, None]
+    # values are read on the next row
+    v0 = torch.roll(tr[[p.value_cols[0] for p in ports]], -1, dims=-1)[:, None]
+    v1 = torch.roll(tr[[p.value_cols[1] for p in ports]], -1, dims=-1)[:, None]
+    b = stages.const_column(betas, dev)                        # (S, 1)
+    d1 = stages.const_column(deltas, dev)
+    d2 = stages.const_column([d * d for d in deltas], dev)
+    den = gl.sub(b, gl.add(gl.add(addr, gl.mul(v0, d1)), gl.mul(v1, d2)))
+    h = gl.mul(mult, gl.inv(den))                              # (Pp, S, n)
+    z = _exclusive_prefix_sum(gl.field_sum(h, 0))              # (S, n)
+    return torch.cat([h.reshape(len(ports) * S, -1), z])
+
+
 # ---------------------------------------------------------------------------
 # Constraint composition
 # ---------------------------------------------------------------------------
@@ -193,7 +226,8 @@ def composition_block(rows: int, N: int) -> int:
     return max(min(block, N), min(1024, N))
 
 
-def _transition_sums(air, public, blowup, tr, ax, cl, betas, powers, s, e):
+def _transition_sums(air, public, blowup, tr, ax, cl, betas, deltas, powers,
+                     s, e):
     """(Σ_i α^i·T_i(x), number of constraints) over LDE points [s, e): the
     transition constraints of one block, "next row" read `blowup` points
     ahead.  `powers(k)` returns [α^0 .. α^(k-1)]."""
@@ -204,11 +238,16 @@ def _transition_sums(air, public, blowup, tr, ax, cl, betas, powers, s, e):
     consts = list(_window(cl, s, e).unbind(0)) if cl.shape[0] else None
     tvals = list(air.transition(DeviceAlgebra, local, nxt, public, consts))
     lookups = air.lookups()
-    if lookups:
-        tvals += lookup_transitions(
-            DeviceAlgebra, local, nxt, list(_window(ax, s, e).unbind(0)),
-            list(_window(ax, s + blowup, e + blowup).unbind(0)), consts,
-            betas, lookups)
+    if lookups or air.bus_ports():
+        aux_local = list(_window(ax, s, e).unbind(0))
+        aux_next = list(_window(ax, s + blowup, e + blowup).unbind(0))
+        if lookups:
+            tvals += lookup_transitions(DeviceAlgebra, local, nxt, aux_local,
+                                        aux_next, consts, betas, lookups)
+        if air.bus_ports():
+            tvals += bus_transitions(DeviceAlgebra, local, nxt, aux_local,
+                                     aux_next, consts, betas, deltas, air)
+        del aux_local, aux_next
     del local, nxt, blk, blk_n
     n_trans = len(tvals)
     ap = powers(n_trans)
@@ -224,7 +263,7 @@ def _transition_sums(air, public, blowup, tr, ax, cl, betas, powers, s, e):
 
 
 def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
-                 alpha, betas, x, zh):
+                 alpha, betas, deltas, x, zh):
     """acc(x) = Σ_i α^i·T_i(x)·(x−x_last) + Σ_b α^{t+b}·B_b(x)·Z_H(x)/(x−x_b)
     over the LDE domain, as an ext pair (c0, c1) of (N,) tensors.
 
@@ -232,6 +271,9 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
     points (`composition_block`): a point's constraints read only its own
     column and the one `blowup` ahead, so the blocks concatenate to the
     whole-domain result while a wide AIR's stacked temporaries stay bounded.
+    `blowup` is the index distance of "the next trace row": the blowup on
+    the whole LDE domain, 1 on one stride-`blowup` coset (`prove_streamed`);
+    `zh` is a tensor over the points or, on one coset, a Python int.
     """
     W, N = tr.shape
     dev = tr.device
@@ -248,7 +290,7 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
     for s in range(0, N, block):
         e = min(s + block, N)
         (t0, t1), n_trans = _transition_sums(air, public, blowup, tr, ax, cl,
-                                             betas, powers, s, e)
+                                             betas, deltas, powers, s, e)
         xm = gl.sub(x[s:e], x_last)
         parts0.append(gl.mul(t0, xm))
         parts1.append(gl.mul(t1, xm))
@@ -272,8 +314,8 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
             # column index >= W addresses an aux column (lookup_boundaries)
             pc = torch.stack([tr[c] if c < W else ax[c - W]
                               for (_r, c, _v) in boundaries[s:e]])
-            b = gl.mul(gl.mul(gl.sub(pc, vals[s:e]), zh[None]),
-                       dinv[seg[s:e]])
+            zhb = zh[None] if isinstance(zh, torch.Tensor) else zh
+            b = gl.mul(gl.mul(gl.sub(pc, vals[s:e]), zhb), dinv[seg[s:e]])
             acc = ge.add(acc, stages.weighted_sum(b, apb[s:e]))
     return acc
 
@@ -283,9 +325,11 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
 # ---------------------------------------------------------------------------
 
 def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
-                      challenger: Challenger):
+                      challenger: Challenger, spill: bool = False):
     """Fold-and-commit layers.  Returns (FriProof without query rounds,
-    [(codeword, DeviceTree)] per layer)."""
+    [(codeword, tree)] per layer): device codewords and DeviceTrees, or
+    with `spill` (the streamed prover) host uint64 codewords and HostTrees,
+    moved off the device as each layer is committed."""
     layers = []
     caps = []
     c = L
@@ -295,12 +339,14 @@ def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
     while n > config.final_poly_len << config.rate_bits:
         tree = stages.fri_commit_layer(
             c, cur_log, min(config.cap_height, cur_log - 1))
+        if spill:
+            tree = stages.HostTree.from_device(tree)
         cap = tree.cap_ints()
         caps.append(cap)
         challenger.observe_cap(cap)
         beta = challenger.get_extension_challenge()
         c_next = stages.fri_fold(c, beta, cur_log, cur_shift)
-        layers.append((c, tree))
+        layers.append((stages.spill_codeword(c) if spill else c, tree))
         c = c_next
         cur_shift = (cur_shift * cur_shift) % P
         cur_log -= 1
@@ -348,8 +394,10 @@ def _fri_rounds(fri_pairs, fri_paths, n_queries: int):
 
 def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
           *, device) -> StarkProof:
-    """Prove `air` on the (W, n) uint64 trace, every stage on `device`."""
-    _refuse_streaming(air, config)
+    """Prove `air` on the (W, n) uint64 trace, every stage on `device`.
+    A statement above STREAM_THRESHOLD_ELEMS goes to `prove_streamed`."""
+    if _use_streaming(air, config):
+        return prove_streamed(air, trace_u64, config, device=device)
     n = air.n
     W = air.width
     assert trace_u64.shape == (W, n)
@@ -376,18 +424,15 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
                                                    cap_height=cap_h)
     challenger.observe_cap(trace_tree.cap_ints())
 
-    # ---- lookup aux columns (committed after post-trace challenges) -------
+    # ---- lookup/bus aux columns (committed after post-trace challenges) ---
     lookups = air.lookups()
+    ports = air.bus_ports()
     _, _, A = bus_aux_layout(air)
-    betas: list[int] = []
     aux_tree = aux_lde = aux_coeff = None
     empty = torch.zeros((0, n << rate), dtype=torch.int64, device=dev)
-    if lookups:
-        assert K, "lookup tables live in constant_columns()"
-        assert air.constraint_degree >= max(lk.degree for lk in lookups), \
-            "constraint_degree must cover the synthesized lookup constraints"
-        betas = challenger.get_n_challenges(NUM_LOOKUP_SETS)
-        ax = aux_witness(air, tr, gl.from_u64(consts_u64, dev), betas)
+    betas, deltas = _aux_challenges(air, K, challenger)
+    if lookups or ports:
+        ax = aux_witness(air, tr, gl.from_u64(consts_u64, dev), betas, deltas)
         aux_coeff, aux_lde, aux_tree = stages.commit_rows(
             ax, rate_bits=rate, cap_height=cap_h)
         del ax
@@ -401,10 +446,10 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     w = _root_of_unity(air.log_n, inverse=False)
     x_last = pow(w, n - 1, P)
     boundaries = list(air.boundaries(public)) + \
-        (lookup_boundaries(air) if lookups else [])
+        (lookup_boundaries(air) if (lookups or ports) else [])
     acc = _composition(air, public, boundaries, x_last, blowup, tr_lde,
                        aux_lde if A else empty, const_lde if K else empty,
-                       alpha, betas, x, zh)
+                       alpha, betas, deltas, x, zh)
 
     # ---- quotient -----------------------------------------------------------
     chunks = _num_quotient_chunks(air)
@@ -419,41 +464,12 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     # ---- DEEP openings (all groups at ζ and w·ζ) ---------------------------
     zeta = challenger.get_extension_challenge()
     w_zeta = ext_py.mul(zeta, ext_py.from_base(w))
-    groups = [coeff]
-    if aux_coeff is not None:
-        groups.append(aux_coeff)
-    if K:
-        groups.append(const_coeff)
-    groups.append(q)
-    evals = stages.deep_eval_groups(groups, zeta, w_zeta, air.log_n)
-    gi = 1
-    trace_at_zeta, trace_at_zeta_next = evals[0]
-    aux_at_zeta: list = []
-    aux_at_zeta_next: list = []
-    if aux_coeff is not None:
-        aux_at_zeta, aux_at_zeta_next = evals[gi]
-        gi += 1
-    constants_at_zeta: list = []
-    if K:
-        constants_at_zeta = evals[gi][0]
-        gi += 1
-    quot_at_zeta_flat = evals[gi][0]
-    # Q_k(ζ) = e0 + x·e1: the chunk rows are the c0/c1 coefficient vectors
-    # of an extension-valued polynomial
-    quotient_at_zeta = [
-        ext_py.add(quot_at_zeta_flat[2 * k],
-                   ext_py.mul((0, 1), quot_at_zeta_flat[2 * k + 1]))
-        for k in range(chunks)]
-    for pair in (*trace_at_zeta, *trace_at_zeta_next, *aux_at_zeta,
-                 *aux_at_zeta_next, *constants_at_zeta, *quotient_at_zeta):
-        challenger.observe(pair[0])
-        challenger.observe(pair[1])
+    opened = _open_at_zeta((coeff, aux_coeff, const_coeff, q), chunks, zeta,
+                           w_zeta, air.log_n, challenger)
 
     # ---- DEEP composition codeword ------------------------------------------
     gamma = challenger.get_extension_challenge()
     ldes = (tr_lde, aux_lde if A else None, const_lde if K else None, q_lde)
-    opened = (trace_at_zeta, trace_at_zeta_next, aux_at_zeta,
-              aux_at_zeta_next, constants_at_zeta, quotient_at_zeta)
     L = stages.deep_compose(ldes, opened, gamma, zeta, w_zeta,
                             W, A, K, chunks, log_N)
 
@@ -487,19 +503,215 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
         aux_openings = _tree_openings(g_leaves[gi], g_paths[gi], Q)
     fri_proof.query_rounds = _fri_rounds(fri_pairs, fri_paths, Q)
 
+    return _proof(trace_tree, quot_tree, aux_tree, opened, fri_proof,
+                  trace_openings, quotient_openings, constants_openings,
+                  aux_openings)
+
+
+def _aux_challenges(air: Air, K: int, challenger: Challenger):
+    """The post-trace challenges (betas, deltas) of the lookup and bus
+    arguments; empty lists when the AIR has neither."""
+    lookups = air.lookups()
+    ports = air.bus_ports()
+    if not (lookups or ports):
+        return [], []
+    assert K, "lookup tables / bus addresses live in constant_columns()"
+    if lookups:
+        assert air.constraint_degree >= max(lk.degree for lk in lookups), \
+            "constraint_degree must cover the synthesized lookup constraints"
+    betas = challenger.get_n_challenges(NUM_LOOKUP_SETS)
+    deltas = challenger.get_n_challenges(NUM_LOOKUP_SETS) if ports else []
+    return betas, deltas
+
+
+def _open_at_zeta(groups, chunks: int, zeta, w_zeta, log_n: int,
+                  challenger: Challenger):
+    """Evaluate the coefficient groups (trace, aux | None, const | None,
+    quotient chunks) at ζ and w·ζ and observe every value.  Returns
+    (tz, tnz, az, anz, kz, qz) as lists of ext int pairs."""
+    present = [g for g in groups if g is not None]
+    evals = iter(stages.deep_eval_groups(present, zeta, w_zeta, log_n))
+    tz, tnz = next(evals)
+    az, anz = next(evals) if groups[1] is not None else ([], [])
+    kz = next(evals)[0] if groups[2] is not None else []
+    qflat = next(evals)[0]
+    # Q_k(ζ) = e0 + x·e1: the chunk rows are the c0/c1 coefficient vectors
+    # of an extension-valued polynomial
+    qz = [ext_py.add(qflat[2 * k], ext_py.mul((0, 1), qflat[2 * k + 1]))
+          for k in range(chunks)]
+    for pair in (*tz, *tnz, *az, *anz, *kz, *qz):
+        challenger.observe(pair[0])
+        challenger.observe(pair[1])
+    return tz, tnz, az, anz, kz, qz
+
+
+def _proof(trace_tree, quot_tree, aux_tree, opened, fri_proof,
+           trace_openings, quotient_openings, constants_openings,
+           aux_openings) -> StarkProof:
+    tz, tnz, az, anz, kz, qz = opened
     return StarkProof(
         trace_cap=trace_tree.cap_ints(),
         quotient_cap=quot_tree.cap_ints(),
-        trace_at_zeta=trace_at_zeta,
-        trace_at_zeta_next=trace_at_zeta_next,
-        quotient_at_zeta=quotient_at_zeta,
+        trace_at_zeta=tz,
+        trace_at_zeta_next=tnz,
+        quotient_at_zeta=qz,
         fri_proof=fri_proof,
         trace_openings=trace_openings,
         quotient_openings=quotient_openings,
-        constants_at_zeta=constants_at_zeta,
+        constants_at_zeta=kz,
         constants_openings=constants_openings,
-        aux_cap=aux_tree.cap_ints() if lookups else [],
-        aux_at_zeta=aux_at_zeta,
-        aux_at_zeta_next=aux_at_zeta_next,
+        aux_cap=aux_tree.cap_ints() if aux_tree is not None else [],
+        aux_at_zeta=az,
+        aux_at_zeta_next=anz,
         aux_openings=aux_openings,
     )
+
+
+# ---------------------------------------------------------------------------
+# Coset-streamed prove (1/blowup of the device memory, bit-identical proofs)
+# ---------------------------------------------------------------------------
+
+def _interleave_cosets(parts):
+    """[(n,) per coset c = 0..blowup-1] -> (N,) in LDE natural order."""
+    return torch.stack(parts, dim=-1).reshape(-1)
+
+
+def prove_streamed(air: Air, trace_u64: np.ndarray,
+                   config: StarkConfig = StarkConfig(), *,
+                   device) -> StarkProof:
+    """Coset-streamed prover: the same proof as `prove`, with the committed
+    LDEs never standing on the device.
+
+    The LDE domain splits into `blowup` stride-`blowup` cosets: index
+    j = blowup·t + c is the point g·w_N^c·w_n^t.  Every full-domain stage
+    (leaf hashing, constraint composition, DEEP) runs one coset at a time
+    as a size-n transform of the coefficient rows, where "the next trace
+    row" is the next point of the same coset.  Only single (N,) codewords
+    (composition, DEEP) are built at full size; commitments and FRI layers
+    go to the host (`stages.HostTree`), and the queried leaves are
+    recomputed from their cosets."""
+    n = air.n
+    W = air.width
+    assert trace_u64.shape == (W, n)
+    dev = torch.device(device)
+    blowup = 1 << config.rate_bits
+    log_N = air.log_n + config.rate_bits
+    cap_h = config.fri.cap_height
+    rate = config.rate_bits
+    challenger = Challenger()
+    public = air.public_inputs()
+    challenger.observe_many(public)
+
+    # ---- preprocessed (constant) columns ----------------------------------
+    consts_u64 = air.constant_columns()
+    K = consts_u64.shape[0]
+    const_tree, _, const_coeff = preprocess(air, config, consts_u64,
+                                            device=dev, streamed=True)
+    if const_tree is not None:
+        challenger.observe_cap(const_tree.cap_ints())
+
+    # ---- trace commit -------------------------------------------------------
+    tr = gl.from_u64(trace_u64, dev)
+    coeff = stages.to_coeffs(tr)
+    trace_tree = stages.commit_streamed(coeff, log_N, cap_h)
+    challenger.observe_cap(trace_tree.cap_ints())
+
+    # ---- lookup/bus aux columns ----------------------------------------------
+    lookups = air.lookups()
+    ports = air.bus_ports()
+    _, _, A = bus_aux_layout(air)
+    aux_tree = aux_coeff = None
+    betas, deltas = _aux_challenges(air, K, challenger)
+    if lookups or ports:
+        ax = aux_witness(air, tr, gl.from_u64(consts_u64, dev), betas, deltas)
+        aux_coeff = stages.to_coeffs(ax)
+        del ax
+        aux_tree = stages.commit_streamed(aux_coeff, log_N, cap_h)
+        challenger.observe_cap(aux_tree.cap_ints())
+    del tr
+
+    # ---- constraint composition, coset by coset -----------------------------
+    alpha = challenger.get_extension_challenge()
+    w = _root_of_unity(air.log_n, inverse=False)
+    x_last = pow(w, n - 1, P)
+    boundaries = list(air.boundaries(public)) + \
+        (lookup_boundaries(air) if (lookups or ports) else [])
+    zh_vals, _ = stages.zh_values(air.log_n, rate)
+    wt = stages.shift_table(w, n, dev)
+    empty = torch.zeros((0, n), dtype=torch.int64, device=dev)
+    parts0, parts1 = [], []
+    for c in range(blowup):
+        shift = stages.coset_shift(c, log_N)
+        a0, a1 = _composition(
+            air, public, boundaries, x_last, 1,
+            stages.coset_eval_rows(coeff, shift),
+            stages.coset_eval_rows(aux_coeff, shift) if A else empty,
+            stages.coset_eval_rows(const_coeff, shift) if K else empty,
+            alpha, betas, deltas, gl.mul(wt, shift), zh_vals[c])
+        parts0.append(a0)
+        parts1.append(a1)
+    acc = (_interleave_cosets(parts0), _interleave_cosets(parts1))
+    del parts0, parts1
+
+    # ---- quotient -----------------------------------------------------------
+    _, zhinv = stages.zh_on_domain(air.log_n, rate, dev)
+    chunks = _num_quotient_chunks(air)
+    ok, q = stages.quotient_coeffs(acc, zhinv, chunks, rate)
+    del acc
+    assert ok, "composition polynomial exceeds quotient degree bound"
+    quot_tree = stages.commit_streamed(q, log_N, cap_h)
+    challenger.observe_cap(quot_tree.cap_ints())
+
+    # ---- DEEP openings at ζ (coefficient side, as in `prove`) ----------------
+    zeta = challenger.get_extension_challenge()
+    w_zeta = ext_py.mul(zeta, ext_py.from_base(w))
+    groups = (coeff, aux_coeff, const_coeff, q)
+    opened = _open_at_zeta(groups, chunks, zeta, w_zeta, air.log_n,
+                           challenger)
+
+    # ---- DEEP composition codeword, coset by coset ---------------------------
+    gamma = challenger.get_extension_challenge()
+    parts0, parts1 = [], []
+    for c in range(blowup):
+        l0, l1 = stages.deep_compose_coset(groups, opened, gamma, zeta,
+                                           w_zeta, W, A, K, chunks, log_N, c)
+        parts0.append(l0)
+        parts1.append(l1)
+    L = (_interleave_cosets(parts0), _interleave_cosets(parts1))
+    del parts0, parts1
+
+    # ---- FRI (codewords and trees move to the host as folding proceeds) -----
+    fri_proof, fri_host = _fri_prove_staged(L, log_N, gl.GENERATOR,
+                                            config.fri, challenger, spill=True)
+    del L
+    indices = derive_query_indices(challenger, log_N, config.fri.num_queries)
+
+    # ---- openings: recompute only the queried cosets --------------------------
+    named = [coeff, q] + ([const_coeff] if K else []) + \
+        ([aux_coeff] if A else [])
+    trees = [trace_tree, quot_tree] + ([const_tree] if K else []) + \
+        ([aux_tree] if A else [])
+    leaf_at: list[dict] = [{} for _ in named]
+    by_coset: dict[int, list[int]] = {}
+    for j in indices:
+        by_coset.setdefault(j % blowup, []).append(j)
+    for c, js in by_coset.items():
+        ts = sorted({j // blowup for j in js})
+        t_pos = {t: k for k, t in enumerate(ts)}
+        cols = torch.tensor(ts, dtype=torch.int64, device=dev)
+        shift = stages.coset_shift(c, log_N)
+        for g, grp in enumerate(named):
+            vals = gl.to_u64(stages.coset_eval_rows(grp, shift)[:, cols])
+            for j in js:
+                leaf_at[g][j] = [int(v) for v in vals[:, t_pos[j // blowup]]]
+    g_paths, fri_pairs, fri_paths = stages.open_positions_host(
+        indices, trees, fri_host)
+    Q = len(indices)
+    openings = [[TreeOpening(leaf=leaf_at[g][j],
+                             path=[[int(x) for x in lvl[qi]]
+                                   for lvl in g_paths[g]])
+                 for qi, j in enumerate(indices)] for g in range(len(named))]
+    fri_proof.query_rounds = _fri_rounds(fri_pairs, fri_paths, Q)
+    return _proof(trace_tree, quot_tree, aux_tree, opened, fri_proof,
+                  openings[0], openings[1], openings[2] if K else [],
+                  openings[-1] if A else [])

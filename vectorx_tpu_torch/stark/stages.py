@@ -1,8 +1,10 @@
 """Prover stages on the device of the tensors they are given.
 
-Port of the unstreamed stages of `vectorx_tpu.stark.stages`:
+Port of `vectorx_tpu.stark.stages`:
 
     commit        : iNTT -> coset-LDE -> leaf hash -> Merkle layers
+    streamed      : the same commitment one stride-`blowup` coset at a time,
+                    its digest layers kept on the host (`HostTree`)
     quotient      : Z_H division -> coset iNTT -> chunk split
     DEEP eval     : every coefficient group at ζ and w·ζ
     DEEP compose  : the batched opening codeword L(x)
@@ -163,6 +165,104 @@ def commit_rows(rows: torch.Tensor, *, rate_bits: int, cap_height: int,
     return c, lde, DeviceTree(layers, cap_height)
 
 
+def coset_shift(c: int, log_N: int) -> int:
+    """Shift of the c-th stride-`blowup` coset: LDE index j = blowup·t + c
+    is the point g·w_N^c·w_n^t."""
+    return (gl.GENERATOR * pow(_root_of_unity(log_N, inverse=False), c, P)) % P
+
+
+def coset_eval_rows(c: torch.Tensor, shift: int) -> torch.Tensor:
+    """Degree-<n coefficient rows (R, n) evaluated on the coset shift·H —
+    the streamed prover's per-coset transform (`coset_ntt`, i.e. the CUDA
+    kernels on a CUDA tensor), row-chunked."""
+    return rows_chunked(lambda a: coset_ntt(a, shift), c, c.shape[-1])
+
+
+def hash_rows_leaves(e: torch.Tensor) -> torch.Tensor:
+    """Leaf digests (n, 4) of evaluation rows (R, n): columns are leaves."""
+    return merkle.hash_leaves(e.T)
+
+
+def commit_streamed(c: torch.Tensor, log_N: int, cap_height: int):
+    """Merkle tree over the LDE leaves of coefficient rows (R, n), one
+    stride-`blowup` coset at a time: hash each coset's n leaves, interleave
+    the digests (leaf j = blowup·t + c is coset c's position t), build the
+    layers, and keep them on the host (`HostTree`).  Equal to the tree of
+    `commit_rows` over the same rows."""
+    n = c.shape[-1]
+    blowup = (1 << log_N) // n
+    digs = torch.stack([hash_rows_leaves(coset_eval_rows(
+        c, coset_shift(k, log_N))) for k in range(blowup)], dim=1)
+    layers = merkle.layers_from_digests(digs.reshape(-1, 4), cap_height)
+    del digs
+    return HostTree.from_device(DeviceTree(layers, cap_height))
+
+
+class HostTree:
+    """Merkle digest layers kept in host memory as canonical (n, 4) uint64
+    numpy arrays — the same duck type as DeviceTree for `cap_ints()`; query
+    paths are gathered on the host (`open_paths`).
+
+    The streamed prover's commitments and FRI layers are written once and
+    read at only Q positions, so they do not earn device residency: keeping
+    them on the host bounds its device memory to the coefficient groups and
+    one stage's temporaries."""
+
+    __slots__ = ("layers", "cap_height", "_cap")
+
+    def __init__(self, layers, cap_height: int):
+        self.layers = layers          # list[np.ndarray (n, 4) uint64]
+        self.cap_height = cap_height
+        self._cap = None
+
+    @classmethod
+    def from_device(cls, tree: DeviceTree) -> "HostTree":
+        return cls([gl.to_u64(layer) for layer in tree.layers],
+                   tree.cap_height)
+
+    def nbytes(self) -> int:
+        return sum(layer.nbytes for layer in self.layers)
+
+    def cap_ints(self) -> list[list[int]]:
+        if self._cap is None:
+            self._cap = [[int(x) for x in row] for row in self.layers[-1]]
+        return self._cap
+
+    def open_paths(self, indices) -> list:
+        """Sibling digests per level (leaf-first, cap excluded) for every
+        query index, as (Q, 4) uint64 arrays."""
+        cur = np.asarray(indices, dtype=np.int64)
+        sibs = []
+        for layer in self.layers[:-1]:
+            sibs.append(layer[cur ^ 1])
+            cur = cur >> 1
+        return sibs
+
+
+def spill_codeword(c) -> tuple:
+    """FRI codeword (c0, c1) device tensors -> canonical host (c0, c1)
+    uint64 numpy arrays."""
+    return gl.to_u64(c[0]), gl.to_u64(c[1])
+
+
+def open_positions_host(indices, trees, fri_layers):
+    """Host twin of `open_positions` for the streamed prover: `trees` are
+    HostTrees, `fri_layers` ((c0, c1) uint64, HostTree) per fold layer.
+    Returns (group_paths, fri_pairs, fri_paths) in `open_positions`'s
+    formats (the streamed prover recomputes the queried leaves itself)."""
+    idx = np.asarray(indices, dtype=np.int64)
+    group_paths = [t.open_paths(idx) for t in trees]
+    fri_pairs, fri_paths = [], []
+    cur = idx
+    for (c0, c1), tree in fri_layers:
+        h = c0.shape[0] // 2
+        i = cur % h
+        fri_pairs.append((c0[i], c1[i], c0[i + h], c1[i + h]))
+        fri_paths.append(tree.open_paths(i))
+        cur = i
+    return group_paths, fri_pairs, fri_paths
+
+
 # ---------------------------------------------------------------------------
 # Quotient
 # ---------------------------------------------------------------------------
@@ -266,9 +366,29 @@ def deep_compose(ldes, opened, gamma, zeta, w_zeta,
 
     ldes: (trace, aux | None, const | None, quotient) LDE rows (R, N).
     opened: (tz, tnz, az, anz, kz, qz) lists of ext int pairs."""
+    x = domain_x(log_N, gl.GENERATOR, ldes[0].device)
+    return _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x)
+
+
+def deep_compose_coset(coeffs, opened, gamma, zeta, w_zeta,
+                       W: int, A: int, K: int, chunks: int,
+                       log_N: int, c: int):
+    """Streamed variant: evaluate the coefficient groups (as in `ldes`) on
+    stride-`blowup` coset `c` and form the DEEP codeword there."""
+    n = coeffs[0].shape[-1]
+    s = coset_shift(c, log_N)
+    ldes = tuple(None if g is None else coset_eval_rows(g, s) for g in coeffs)
+    log_n = n.bit_length() - 1
+    x = gl.mul(shift_table(_root_of_unity(log_n, inverse=False), n,
+                           coeffs[0].device), s)
+    return _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x)
+
+
+def _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x):
+    """The DEEP codeword on one evaluation set (points `x`): the full
+    domain or one coset."""
     tr = ldes[0]
     dev = tr.device
-    x = domain_x(log_N, gl.GENERATOR, dev)
     x_ext = (x, torch.zeros_like(x))
     inv_x_zeta = ge.inv(ge.sub(x_ext, ext_const(zeta, dev)))
     inv_x_wzeta = ge.inv(ge.sub(x_ext, ext_const(w_zeta, dev)))

@@ -17,8 +17,8 @@ from vectorx_tpu_torch.fri.fri import fri_check_queries, fri_replay
 from vectorx_tpu_torch.fri.transcript import Challenger
 from vectorx_tpu_torch.ntt.ntt import _root_of_unity
 from vectorx_tpu_torch.stark.air import (NUM_LOOKUP_SETS, Air, ExtAlgebra,
-                                         bus_aux_layout, lookup_boundaries,
-                                         lookup_transitions)
+                                         bus_aux_layout, bus_transitions,
+                                         lookup_boundaries, lookup_transitions)
 from vectorx_tpu_torch.stark.prover import (StarkConfig, StarkProof,
                                             _num_quotient_chunks)
 
@@ -40,7 +40,6 @@ def verify(air: Air, proof: StarkProof,
     log_N = air.log_n + config.rate_bits
     public = air.public_inputs()
     K = air.num_constants()
-    _, _, A = bus_aux_layout(air)       # raises for bus ports (not ported)
 
     challenger = Challenger()
     challenger.observe_many(public)
@@ -55,9 +54,14 @@ def verify(air: Air, proof: StarkProof,
         challenger.observe_cap(const_cap)
     challenger.observe_cap(proof.trace_cap)
     lookups = air.lookups()
+    ports = air.bus_ports()
+    _, _, A = bus_aux_layout(air)
     betas: list[int] = []
-    if lookups:
+    deltas: list[int] = []
+    if lookups or ports:
         betas = challenger.get_n_challenges(NUM_LOOKUP_SETS)
+        if ports:
+            deltas = challenger.get_n_challenges(NUM_LOOKUP_SETS)
         challenger.observe_cap(proof.aux_cap)
     alpha = challenger.get_extension_challenge()
     challenger.observe_cap(proof.quotient_cap)
@@ -91,6 +95,10 @@ def verify(air: Air, proof: StarkProof,
         transition_vals += lookup_transitions(
             ExtAlgebra, local, nxt, list(proof.aux_at_zeta),
             list(proof.aux_at_zeta_next), consts, betas, lookups)
+    if ports:
+        transition_vals += bus_transitions(
+            ExtAlgebra, local, nxt, list(proof.aux_at_zeta),
+            list(proof.aux_at_zeta_next), consts, betas, deltas, air)
 
     acc = ext_py.ZERO
     a_pow = ext_py.ONE
@@ -100,7 +108,7 @@ def verify(air: Air, proof: StarkProof,
         a_pow = ext_py.mul(a_pow, alpha)
     all_at_zeta = local + list(proof.aux_at_zeta)
     boundaries = list(air.boundaries(public)) + \
-        (lookup_boundaries(air) if lookups else [])
+        (lookup_boundaries(air) if (lookups or ports) else [])
     for (row, col, value) in boundaries:
         x_r = pow(w, row, P)
         diff = ext_py.sub(all_at_zeta[col], ext_py.from_base(value))
@@ -130,7 +138,7 @@ def verify(air: Air, proof: StarkProof,
 
     if K and len(proof.constants_openings) != len(indices):
         return False
-    if lookups and len(proof.aux_openings) != len(indices):
+    if (lookups or ports) and len(proof.aux_openings) != len(indices):
         return False
     w8 = _root_of_unity(log_N, inverse=False)
     w_zeta = ext_py.mul(zeta, ext_py.from_base(w))
@@ -148,7 +156,7 @@ def verify(air: Air, proof: StarkProof,
             if len(c_open.leaf) != K:
                 return False
         groups.append((proof.constants_openings, const_cap))
-    if lookups:
+    if lookups or ports:
         for a_open in proof.aux_openings:
             if len(a_open.leaf) != A:
                 return False
@@ -161,7 +169,7 @@ def verify(air: Air, proof: StarkProof,
     for qi, (q, t_open, q_open) in enumerate(zip(
             indices, proof.trace_openings, proof.quotient_openings)):
         c_open = proof.constants_openings[qi] if K else None
-        a_open = proof.aux_openings[qi] if lookups else None
+        a_open = proof.aux_openings[qi] if (lookups or ports) else None
         x_q = (gl.GENERATOR * pow(w8, q, P)) % P
         inv_xz = ext_py.inv(ext_py.sub(ext_py.from_base(x_q), zeta))
         inv_xwz = ext_py.inv(ext_py.sub(ext_py.from_base(x_q), w_zeta))
