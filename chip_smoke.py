@@ -22,7 +22,9 @@ so the script exits non-zero and prints no final line:
    (50, 2^20), each beside its bound (bytes or integer multiply-adds, at
    the SM clock read under load), its share of the bound, its plain
    version and the time recorded for the first version of the kernels.
-2. the `entry()` twin on CUDA and on CPU: equal Merkle roots.
+2. the `entry()` twin on CUDA and on CPU: equal Merkle roots; Poseidon's
+   dense matvecs as float64 limb matmuls equal to the field-op products
+   on 2^20 random states, each timed, and a whole permutation timed.
 3. the STARK prover path at the production FRI config (`FriConfig()`:
    rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=18) and
    RangeCheckAir(log_n=17, bits=16, V=8), each proved on CUDA with
@@ -385,6 +387,35 @@ def phase_kernels(dev, card: str) -> dict:
                16 * x.numel(), mads)
     torch.cuda.synchronize()
     return {"worst": worst, "timed": timed}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: Poseidon's dense matvecs on the card
+# ---------------------------------------------------------------------------
+
+def phase_poseidon(dev, card: str) -> None:
+    """The float64 limb matmuls of Poseidon's dense matvecs against the
+    field-op products, on random states with u64 edge values, and the
+    time of each and of a whole permutation of 2^20 states."""
+    import numpy as np
+
+    from vectorx_tpu_torch.hash import poseidon
+
+    rng = np.random.default_rng(3)
+    x = random_field(rng, (1 << 20, poseidon.WIDTH), dev)
+    prm = poseidon._dev_params(dev)
+    for name in ("mds", "sigma"):
+        err = max_abs_err(poseidon._matmul_limbs(x, prm[name + "_T"]),
+                          poseidon._mds_layer(x, prm[name]))
+        if err:
+            raise AssertionError(f"Poseidon {name}: limb matmuls != field "
+                                 f"ops (max err {err})")
+    ops = cuda_ms(lambda: poseidon._mds_layer(x, prm["mds"]))
+    mm = cuda_ms(lambda: poseidon._matmul_limbs(x, prm["mds_T"]))
+    perm = cuda_ms(lambda: poseidon.permute(x), 3)
+    log(f"phase 2: Poseidon MDS and sigma on 2^20 states: limb matmuls == "
+        f"field ops; MDS {mm:.3f} ms as matmuls, {ops:.3f} ms as field "
+        f"ops; permute {perm:.3f} ms  [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1092,6 +1123,7 @@ def main() -> int:
         raise AssertionError(f"entry twin: CUDA root {r_cuda} != CPU {r_cpu}")
     log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU "
         f"({time.perf_counter() - t0:.2f} s)")
+    phase_poseidon(dev, card)
 
     # the prover path of the first slice, three steps shallower than there
     # (2^21 / 2^20 rows) so that the whole script fits its time limit

@@ -56,7 +56,7 @@ def test_permute_matches_jax(rows):
 
 
 def test_host_matmul_equals_field_products_at_u64_edges():
-    """`_matmul_cpu` (exact float64 limb matmuls) against the field-op
+    """`_matmul_limbs` (exact float64 limb matmuls) against the field-op
     products it replaces, on states made only of u64 edge values."""
     rng = np.random.default_rng(5)
     edge = np.array([0, 1, 2**32 - 1, 2**32, P - 1, P, P + 1, 2**63,
@@ -65,15 +65,15 @@ def test_host_matmul_equals_field_products_at_u64_edges():
     prm = tpv._dev_params(torch.device("cpu"))
     for m, limbs in (("mds", "mds_T"), ("sigma", "sigma_T")):
         assert np.array_equal(
-            tgl.to_u64(tpv._matmul_cpu(x, prm[limbs])),
+            tgl.to_u64(tpv._matmul_limbs(x, prm[limbs])),
             tgl.to_u64(tpv._mds_layer(x, prm[m])))
     for i in (0, tpv.PARTIAL_ROUNDS - 1):
         v = tgl.field_sum(tgl.mul(x, prm["v"][i]), -1)[..., None]
-        assert np.array_equal(tgl.to_u64(tpv._matmul_cpu(x, prm["v_T"][i])),
+        assert np.array_equal(tgl.to_u64(tpv._matmul_limbs(x, prm["v_T"][i])),
                               tgl.to_u64(v))
         w = tgl.mul(x[..., :1], prm["w"][i])
         assert np.array_equal(
-            tgl.to_u64(tpv._matmul_cpu(x[..., :1], prm["w_T"][i])),
+            tgl.to_u64(tpv._matmul_limbs(x[..., :1], prm["w_T"][i])),
             tgl.to_u64(w))
 
 

@@ -230,23 +230,22 @@ def _dev_params(device):
         def t(a):
             return gl.from_u64(np.array(a, dtype=np.uint64), dev)
 
+        # the matrices as 16-bit limbs, (inputs, outputs) per limb, for
+        # the float64 matmuls of `_matmul_limbs`
+        def limbs(m):
+            m = np.array(m, dtype=np.uint64)
+            return torch.stack([
+                torch.from_numpy(((m >> np.uint64(16 * b))
+                                  & np.uint64(0xFFFF)).astype(np.float64))
+                for b in range(4)]).to(dev)
+
         prm = _DEV[key] = {
             "rc": t(rc).reshape(N_ROUNDS, WIDTH), "mds": t(mds),
-            "v": t(rho_v), "w": t(rho_w), "c": t(c_prime), "sigma": t(sigma)}
-        if dev.type == "cpu":
-            # the matrices as 16-bit limbs, (inputs, outputs) per limb,
-            # for the float64 matmuls of `_matmul_cpu`
-            def limbs(m):
-                m = np.array(m, dtype=np.uint64)
-                return torch.stack([
-                    torch.from_numpy(((m >> np.uint64(16 * b))
-                                      & np.uint64(0xFFFF)).astype(np.float64))
-                    for b in range(4)])
-
-            prm.update({"mds_T": limbs(np.array(mds, dtype=object).T),
-                        "sigma_T": limbs(np.array(sigma, dtype=object).T),
-                        "v_T": [limbs([[x] for x in row]) for row in rho_v],
-                        "w_T": [limbs([row]) for row in rho_w]})
+            "v": t(rho_v), "w": t(rho_w), "c": t(c_prime), "sigma": t(sigma),
+            "mds_T": limbs(np.array(mds, dtype=object).T),
+            "sigma_T": limbs(np.array(sigma, dtype=object).T),
+            "v_T": [limbs([[x] for x in row]) for row in rho_v],
+            "w_T": [limbs([row]) for row in rho_w]}
     return prm
 
 
@@ -266,14 +265,15 @@ def _mds_layer(s, m):
     return gl.field_sum(gl.mul(s[..., None, :], m), -1)
 
 
-# Host batches of at least this many states take `_matmul_cpu` (faster
-# from about 64 states on; below, its fixed cost per call dominates).
+# Batches of at least this many states take `_matmul_limbs` for the dense
+# matvecs (on the host faster from about 64 states on; below, its fixed
+# cost per call dominates).
 MATMUL_MIN_STATES = 64
 
 
-def _matmul_cpu(s: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
-    """s (..., K) times a constant (K, R) field matrix (K <= 16) on the
-    CPU, exact, as eight float64 matmuls: the 32-bit halves of s against
+def _matmul_limbs(s: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
+    """s (..., K) times a constant (K, R) field matrix (K <= 16), exact, as
+    eight float64 matmuls: the 32-bit halves of s against
     the 16-bit limbs of the matrix, each product below 2^48 and each
     K-term sum an integer below 2^52, so float64 holds every partial sum
     exactly.  The sums are carried through 16-bit digits into a 128-bit
@@ -303,31 +303,34 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     prm = _dev_params(state.device)
     rc = prm["rc"]
     half = FULL_ROUNDS // 2
-    if state.is_cuda or state[..., 0].numel() < MATMUL_MIN_STATES:
-        def mds(x):
-            return _mds_layer(x, prm["mds"])
+    big = state[..., 0].numel() >= MATMUL_MIN_STATES
 
-        def sigma(x):
-            return _mds_layer(x, prm["sigma"])
+    # the dense 12x12 matvecs as exact float64 matmuls (`_matmul_limbs`)
+    # on big batches, where the field-op products' (states, 12, 12)
+    # temporaries cost more than the matmuls
+    def mds(x):
+        return _matmul_limbs(x, prm["mds_T"]) if big else \
+            _mds_layer(x, prm["mds"])
 
+    def sigma(x):
+        return _matmul_limbs(x, prm["sigma_T"]) if big else \
+            _mds_layer(x, prm["sigma"])
+
+    # the sparse rounds' 12- and 11-term products: matmuls on the host,
+    # where they beat the field ops; field ops on the card, where the
+    # matmul path's extra launches would cost more than they save
+    if big and not state.is_cuda:
+        def v_dot(x, i):
+            return _matmul_limbs(x, prm["v_T"][i])
+
+        def w_mul(x0, i):
+            return _matmul_limbs(x0, prm["w_T"][i])
+    else:
         def v_dot(x, i):
             return gl.field_sum(gl.mul(x, prm["v"][i]), -1)[..., None]
 
         def w_mul(x0, i):
             return gl.mul(x0, prm["w"][i])
-    else:
-        # exact float64 matmuls on the host (`_matmul_cpu`), equal mod p
-        def mds(x):
-            return _matmul_cpu(x, prm["mds_T"])
-
-        def sigma(x):
-            return _matmul_cpu(x, prm["sigma_T"])
-
-        def v_dot(x, i):
-            return _matmul_cpu(x, prm["v_T"][i])
-
-        def w_mul(x0, i):
-            return _matmul_cpu(x0, prm["w_T"][i])
 
     s = state
     for r in range(half):
