@@ -42,7 +42,7 @@ so the script exits non-zero and prints no final line:
 6. batched ed25519 on the card: 300 keys, 240 signed, accepted; one forged
    signature rejected; the CPU run agrees.
 7. the header_range statement with the reference deployment's widths (300
-   authorities, mixed headers of ~360-2100 B) at tree 8 (the deployment
+   authorities, mixed headers of ~360-2100 B) at tree 16 (the deployment
    runs 256): the non-ZK `HeaderRangeCircuit.run` and the component-proof
    `prove_header_range_zk` at the production FRI config on the card, both
    outputs equal to `DummyHeaderRange`'s; `verify_header_range_zk`
@@ -59,8 +59,11 @@ so the script exits non-zero and prints no final line:
    accepts, and only then a tampered header hash and a tampered FRI final
    coefficient are rejected; every kernel must have launched on the path.
 
-The last lines are a JSON record of the kernels, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+The CPU sides of phases 4 and 6 run in a second process (`--host-checks`)
+while the card runs phases 1-3.  Each phase ends with a line of its
+seconds and the seconds since the start.  The last lines are a JSON record
+of the kernels, the card's name and power limit, and `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -68,10 +71,13 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -394,9 +400,10 @@ def phase_kernels(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_poseidon(dev, card: str) -> None:
-    """The float64 limb matmuls of Poseidon's dense matvecs against the
-    field-op products, on random states with u64 edge values, and the
-    time of each and of a whole permutation of 2^20 states."""
+    """Poseidon's dense MDS and sigma matvecs as float64 limb matmuls (the
+    route `permute` takes) against the field-op products, on 2^20 random
+    states with u64 edge values; the time of the MDS both ways and of a
+    whole permutation."""
     import numpy as np
 
     from vectorx_tpu_torch.hash import poseidon
@@ -603,13 +610,12 @@ def phase_hashes(dev, card: str) -> None:
 # Phase 6: batched ed25519 on the card
 # ---------------------------------------------------------------------------
 
-def phase_ed25519(dev, card: str) -> None:
+def ed25519_batch():
+    """300 keys, 240 of them signing one message (the rest unsigned), as
+    `batch_verify`'s arguments, and a signature set with one forgery."""
     import hashlib
 
-    import torch
-
     from vectorx_tpu_torch.curves import ed25519 as host
-    from vectorx_tpu_torch.curves.ed25519_batch import batch_verify
 
     n, n_signed = 300, 240
     keys = [hashlib.sha256(b"chip-smoke" + i.to_bytes(4, "little")).digest()
@@ -620,30 +626,40 @@ def phase_ed25519(dev, card: str) -> None:
     mask = [i in signed for i in range(n)]
     sigs = [host.sign(k, msg) if on else bytes(64)
             for k, on in zip(keys, mask)]
-
-    def run(sig_list, device):
-        t0 = time.perf_counter()
-        ok = batch_verify(pks, [msg] * n, sig_list, mask,
-                          rng=random.Random(7), device=device)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        return ok, time.perf_counter() - t0
-
-    ok, t_dev = run(sigs, dev)
-    if not ok:
-        raise AssertionError("batch_verify rejected valid signatures")
     forged = list(sigs)
     victim = min(signed)
     forged[victim] = host.sign(keys[victim], msg + b"!")
-    bad, t_bad = run(forged, dev)
+    return pks, [msg] * n, sigs, mask, forged
+
+
+def ed25519_verify(batch, sigs, device) -> tuple[bool, float]:
+    import torch
+
+    from vectorx_tpu_torch.curves.ed25519_batch import batch_verify
+
+    pks, msgs, _, mask, _ = batch
+    t0 = time.perf_counter()
+    ok = batch_verify(pks, msgs, sigs, mask, rng=random.Random(7),
+                      device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return ok, time.perf_counter() - t0
+
+
+def phase_ed25519(dev, card: str, host: "HostChecks") -> None:
+    batch = ed25519_batch()
+    ok, t_dev = ed25519_verify(batch, batch[2], dev)
+    if not ok:
+        raise AssertionError("batch_verify rejected valid signatures")
+    bad, t_bad = ed25519_verify(batch, batch[4], dev)
     if bad:
         raise AssertionError("batch_verify accepted a forged signature")
-    ok_cpu, t_cpu = run(sigs, "cpu")
+    ok_cpu, t_cpu = host.result()["ed25519"]
     if ok_cpu != ok:
         raise AssertionError("batch_verify: CUDA and CPU disagree")
-    log(f"phase 6: ed25519 batch_verify, {n} keys, {n_signed} signed: "
-        f"accepted in {t_dev:.3f} s, forged signature rejected in "
-        f"{t_bad:.3f} s; CPU agrees ({t_cpu:.3f} s on the host)  [{card}]")
+    log(f"phase 6: ed25519 batch_verify, 300 keys, 240 signed: accepted in "
+        f"{t_dev:.3f} s, forged signature rejected in {t_bad:.3f} s; CPU "
+        f"agrees ({t_cpu:.3f} s in the host-check process)  [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -669,11 +685,9 @@ def phase_header_range(dev, card: str) -> dict:
                                                    proof_to_json)
 
     # the reference deployment's header_range with 300 authorities and
-    # headers cycling through 100/10/60/25 % of a 2048 B bound, at tree 8
-    # (the deployment's is 256) so that the whole script fits its limit;
-    # at trees 2 and 4 this chain's circuit and dummy outputs differ, in
-    # the JAX package too
-    tree, auth, max_header = 8, 300, 35840
+    # headers cycling through 100/10/60/25 % of a 2048 B bound, at tree 16
+    # (the deployment's is 256) so that the whole script fits its limit
+    tree, auth, max_header = 16, 300, 35840
     base, frac = 2048 - 180, (100, 10, 60, 25)
     t0 = time.perf_counter()
     chain = FixtureChain(seed=19, num_blocks=3 * tree + 2,
@@ -771,13 +785,16 @@ def reference_proof_json(air, trace_u64, config):
     the tests load hold it (`tests/fixtures/proofs`, keyed by
     `tests/_proofcache.py::_key`), or None when there is none."""
     import gzip
-    import os
+    import importlib.util
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
-    from _proofcache import FIXTURE_DIR, _key
-
-    path = os.path.join(FIXTURE_DIR, _key(air, trace_u64, config) + ".json.gz")
+    # loaded by its path: its top level imports only the standard library
+    spec = importlib.util.spec_from_file_location(
+        "_proofcache", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "_proofcache.py"))
+    cache = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cache)
+    path = os.path.join(cache.FIXTURE_DIR,
+                        cache._key(air, trace_u64, config) + ".json.gz")
     if not os.path.exists(path):
         return None
     with gzip.open(path, "rt") as f:
@@ -880,60 +897,146 @@ def bus_air():
     return BusAir()
 
 
-def phase_streamed(dev, card: str) -> None:
-    import torch
-
+def small_config(cap_height: int, num_queries: int = 12,
+                 final_poly_len: int = 4, pow_bits: int = 0):
+    """The tests' small FRI configs at rate 3."""
     from vectorx_tpu_torch.fri.fri import FriConfig
-    from vectorx_tpu_torch.recursion.aggregate import aggregate_prove
-    from vectorx_tpu_torch.stark import FibonacciAir, StarkConfig, prove
-    from vectorx_tpu_torch.stark.prover import prove_streamed
+    from vectorx_tpu_torch.stark import StarkConfig
+
+    return StarkConfig(fri=FriConfig(
+        rate_bits=3, cap_height=cap_height, num_queries=num_queries,
+        final_poly_len=final_poly_len, pow_bits=pow_bits))
+
+
+# tests/test_recursion_aggregate.py's config
+AGG_KNOBS = dict(cap_height=1, num_queries=2, final_poly_len=2, pow_bits=1)
+AGGREGATION = "FibonacciAir(3) aggregation"
+
+
+def phase4_statements():
+    """(name, AIR, config, streamed): RangeCheckAir(8) proved unstreamed;
+    the bus AIR (tests/test_bus.py's config) and FibonacciAir(8)
+    (tests/test_stark.py's) through `prove_streamed`."""
+    import numpy as np
+
+    from vectorx_tpu_torch.stark import FibonacciAir, RangeCheckAir
+
+    vals = np.random.default_rng(11).integers(0, 1 << 6, size=(4, 255),
+                                              dtype=np.uint64)
+    return [("RangeCheckAir(log_n=8, bits=6, V=4)", RangeCheckAir(8, 6, vals),
+             small_config(1), False),
+            ("bus AIR of tests/test_bus.py", bus_air(), small_config(0), True),
+            ("FibonacciAir(log_n=8)", FibonacciAir(8), small_config(1), True)]
+
+
+def proof_text(proof) -> str:
     from vectorx_tpu_torch.stark.serialize import proof_to_json
 
-    def text(proof):
-        return json.dumps(proof_to_json(proof))
+    return json.dumps(proof_to_json(proof))
 
-    # the configs of tests/test_bus.py and tests/test_stark.py
-    for name, air, cap_h in (("bus AIR of tests/test_bus.py", bus_air(), 0),
-                             ("FibonacciAir(log_n=8)", FibonacciAir(8), 1)):
-        cfg = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=cap_h,
-                                        num_queries=12, final_poly_len=4,
-                                        pow_bits=0))
+
+def host_checks() -> dict:
+    """The CPU sides of phases 4 and 6, each with its seconds: the proofs
+    of `phase4_statements`, the machine proof of the FibonacciAir(3)
+    aggregation (child proof included) and the ed25519 batch verify."""
+    import torch
+
+    from vectorx_tpu_torch.recursion.aggregate import aggregate_prove
+    from vectorx_tpu_torch.stark import FibonacciAir, prove
+    from vectorx_tpu_torch.stark.prover import prove_streamed
+
+    torch.set_num_threads(4)
+    out = {}
+    for name, air, cfg, streamed in phase4_statements():
+        t0 = time.perf_counter()
+        fn = prove_streamed if streamed else prove
+        out[name] = (proof_text(fn(air, air.build_trace(), cfg, device="cpu")),
+                     time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cfg, child = small_config(**AGG_KNOBS), FibonacciAir(log_n=3)
+    child_proof = prove(child, child.build_trace(), cfg, device="cpu")
+    agg = aggregate_prove([child], [child_proof], cfg, device="cpu")
+    out[AGGREGATION] = (proof_text(agg.proof), time.perf_counter() - t0)
+    batch = ed25519_batch()
+    out["ed25519"] = ed25519_verify(batch, batch[2], "cpu")
+    return out
+
+
+class HostChecks:
+    """`host_checks` in a second process (`chip_smoke.py --host-checks`),
+    started before phase 1 so that the host proves while the card runs
+    the earlier phases; its caches live in a directory of its own, so it
+    derives every key and program itself."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp(prefix="vectorx-host-checks-")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--host-checks"],
+            stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, VECTORX_VK_CACHE=self.tmp))
+        self._result = None
+
+    def result(self) -> dict:
+        if self._result is None:
+            t0 = time.perf_counter()
+            out, _ = self.proc.communicate()
+            if self.proc.returncode != 0:
+                raise AssertionError(f"the host-check process failed (exit "
+                                     f"{self.proc.returncode})")
+            self._result = json.loads(out.strip().splitlines()[-1])
+            log(f"host checks: waited {time.perf_counter() - t0:.2f} s for "
+                f"the host-check process")
+        return self._result
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_cuda_cpu(dev, card: str, host: HostChecks) -> None:
+    import torch
+
+    from vectorx_tpu_torch.recursion.aggregate import aggregate_prove
+    from vectorx_tpu_torch.stark import FibonacciAir, prove
+    from vectorx_tpu_torch.stark.prover import prove_streamed
+
+    cpu = host.result()
+    for name, air, cfg, streamed in phase4_statements():
         t0 = time.perf_counter()
         trace = air.build_trace()
-        full = text(prove(air, trace, cfg, device=dev))
-        streamed = text(prove_streamed(air, trace, cfg, device=dev))
-        on_cpu = text(prove_streamed(air, trace, cfg, device="cpu"))
-        if streamed != full:
-            raise AssertionError(f"{name}: CUDA prove_streamed != prove")
-        if streamed != on_cpu:
-            raise AssertionError(f"{name}: prove_streamed CUDA != CPU")
-        log(f"phase 4: {name}: prove_streamed == prove on CUDA, and CUDA "
-            f"== CPU streamed ({len(full)} bytes, "
-            f"{time.perf_counter() - t0:.2f} s)")
+        full = proof_text(prove(air, trace, cfg, device=dev))
+        got = full
+        if streamed:
+            got = proof_text(prove_streamed(air, trace, cfg, device=dev))
+            if got != full:
+                raise AssertionError(f"{name}: CUDA prove_streamed != prove")
+        if got != cpu[name][0]:
+            raise AssertionError(f"{name}: CUDA and CPU proofs differ")
+        what = ("prove_streamed == prove on CUDA, CUDA == CPU streamed"
+                if streamed else "CUDA and CPU proof JSON identical")
+        log(f"phase 4: {name}: {what} ({len(full)} bytes, CUDA "
+            f"{time.perf_counter() - t0:.2f} s, CPU {cpu[name][1]:.2f} s)")
 
     # the aggregation of tests/test_recursion_aggregate.py's first child:
     # one machine proof of 1047 rows (log_n 11), on CUDA and on the CPU
-    cfg = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=1, num_queries=2,
-                                    final_poly_len=2, pow_bits=1))
-    child = FibonacciAir(log_n=3)
+    cfg, child = small_config(**AGG_KNOBS), FibonacciAir(log_n=3)
+    t0 = time.perf_counter()
     child_proof = prove(child, child.build_trace(), cfg, device=dev)
-    texts, secs = [], []
-    for device in (dev, "cpu"):
-        t0 = time.perf_counter()
-        agg = aggregate_prove([child], [child_proof], cfg, device=device)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        texts.append(text(agg.proof))
+    agg = aggregate_prove([child], [child_proof], cfg, device=dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
     rows = agg.machine_air.program.n_rows
     if (rows, agg.machine_air.log_n) != (1047, 11):
         raise AssertionError(f"FibonacciAir(3) machine: {rows} rows")
-    if texts[0] != texts[1]:
+    if proof_text(agg.proof) != cpu[AGGREGATION][0]:
         raise AssertionError("FibonacciAir(3) aggregation: machine proof "
                              "differs on CUDA and CPU")
-    log(f"phase 4: FibonacciAir(3) aggregation, {rows} machine rows (log_n "
-        f"11): machine proof JSON identical on CUDA ({secs[0]:.2f} s) and "
-        f"CPU ({secs[1]:.2f} s on the host)  [{card}]")
+    log(f"phase 4: {AGGREGATION}, {rows} machine rows (log_n 11): machine "
+        f"proof JSON identical on CUDA ({t_dev:.2f} s) and CPU "
+        f"({cpu[AGGREGATION][1]:.2f} s in the host-check process, child "
+        f"proof included)  [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1086,20 +1189,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA device")
-    import numpy as np
-
-    from vectorx_tpu_torch import entry
-    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.hash import poseidon_py
     from vectorx_tpu_torch.ntt import cuda_ntt
-    from vectorx_tpu_torch.stark import (FibonacciAir, RangeCheckAir,
-                                         StarkConfig, prove)
-    from vectorx_tpu_torch.stark.serialize import proof_to_json
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"phase 0: card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    state = list(range(12))
+    for _ in range(2000):
+        state = poseidon_py.permute(state)
+    log(f"phase 0: host probe: 2000 scalar Poseidon permutations "
+        f"(poseidon_py) in {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     cuda_ntt.load()
     log(f"phase 0: kernels built from vectorx_tpu_torch/csrc in "
@@ -1113,17 +1216,40 @@ def main() -> int:
             f"{n}: {lib.vx_ntt_tile_smem(n, 0) // 1024} / "
             f"{lib.vx_ntt_tile_smem(n, 1) // 1024} KB"
             for n in range(cuda_ntt.S_BITS + 1)))
+    host = HostChecks()
+    try:
+        return run_phases(dev, card, host, t_start)
+    finally:
+        host.stop()
 
+
+def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
+    import numpy as np
+    import torch
+
+    from vectorx_tpu_torch import entry
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.stark import FibonacciAir, RangeCheckAir, StarkConfig
+
+    marks = [time.perf_counter()]
+
+    def done(phase: int) -> None:
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - marks[-1]:.2f} s; {now - t_start:.1f} s "
+            f"since the start")
+        marks.append(now)
+
+    log(f"phase 0: {marks[0] - t_start:.2f} s")
     k = phase_kernels(dev, card)
+    done(1)
 
-    t0 = time.perf_counter()
     r_cuda = entry.root(dev)
     r_cpu = entry.root("cpu")
     if r_cuda != r_cpu:
         raise AssertionError(f"entry twin: CUDA root {r_cuda} != CPU {r_cpu}")
-    log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU")
     phase_poseidon(dev, card)
+    done(2)
 
     # the prover path of the first slice, three steps shallower than there
     # (2^21 / 2^20 rows) so that the whole script fits its time limit
@@ -1134,42 +1260,25 @@ def main() -> int:
     statements = [("FibonacciAir(log_n=18)", FibonacciAir(log_n=18)),
                   ("RangeCheckAir(log_n=17, bits=16, V=8)",
                    RangeCheckAir(17, 16, values))]
-    t0 = time.perf_counter()
     reset_launches()
     for name, air in statements:
         prove_and_check(name, air, cfg, dev, card)
     launches = read_launches("STARK prover")
-    log(f"phase 3: kernel launches on the STARK prover path: {launches} "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"phase 3: kernel launches on the STARK prover path: {launches}")
+    done(3)
 
-    small = StarkConfig(fri=FriConfig(rate_bits=3, cap_height=1,
-                                      num_queries=12, final_poly_len=4,
-                                      pow_bits=0))
-    vals = np.random.default_rng(11).integers(0, 1 << 6, size=(4, 255),
-                                              dtype=np.uint64)
-    # FibonacciAir(8) is held CUDA against CPU in `phase_streamed`
-    for name, air in (("RangeCheckAir(log_n=8, bits=6, V=4)",
-                       RangeCheckAir(8, 6, vals)),):
-        t0 = time.perf_counter()
-        a = json.dumps(proof_to_json(prove(air, air.build_trace(), small,
-                                           device=dev)))
-        b = json.dumps(proof_to_json(prove(air, air.build_trace(), small,
-                                           device="cpu")))
-        if a != b:
-            raise AssertionError(f"{name}: CUDA and CPU proofs differ")
-        log(f"phase 4: {name}: CUDA and CPU proof JSON identical "
-            f"({len(a)} bytes, {time.perf_counter() - t0:.2f} s)")
-    phase_streamed(dev, card)
-
+    phase_cuda_cpu(dev, card, host)
+    done(4)
     phase_hashes(dev, card)
-    phase_ed25519(dev, card)
-    t0 = time.perf_counter()
+    done(5)
+    phase_ed25519(dev, card, host)
+    done(6)
     hr_launches = phase_header_range(dev, card)
-    log(f"phase 7: {time.perf_counter() - t0:.2f} s")
+    done(7)
     phase_identity(dev, card)
-    t0 = time.perf_counter()
+    done(8)
     rot_launches = phase_rotate(dev, card)
-    log(f"phase 9: {time.perf_counter() - t0:.2f} s")
+    done(9)
 
     for name in launches:
         launches[name] += hr_launches[name] + rot_launches[name]
@@ -1198,4 +1307,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--host-checks"]:
+        print(json.dumps(host_checks()), flush=True)
+        sys.exit(0)
     sys.exit(main())

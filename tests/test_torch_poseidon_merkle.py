@@ -45,9 +45,8 @@ def test_generated_parameters_match_jax():
                             for a in jpv._fast_partial_params()[3]])]
 
 
-@pytest.mark.parametrize("rows", [16, 256])   # 256: the host matmul path
+@pytest.mark.parametrize("rows", [16, 256])
 def test_permute_matches_jax(rows):
-    assert (rows >= tpv.MATMUL_MIN_STATES) == (rows == 256)
     x = _states(1, rows)
     got = tgl.to_u64(tpv.permute(tgl.from_u64(x, "cpu")))
     want = jgl.to_u64(*jpv.permute(*jgl.from_u64(x)))
@@ -56,8 +55,10 @@ def test_permute_matches_jax(rows):
 
 
 def test_host_matmul_equals_field_products_at_u64_edges():
-    """`_matmul_limbs` (exact float64 limb matmuls) against the field-op
-    products it replaces, on states made only of u64 edge values."""
+    """`_matmul_limbs` (exact float64 limb matmuls; `permute`'s dense MDS
+    and sigma matvecs) against the field-op products, on states made only
+    of u64 edge values; also at the sparse rounds' (12, 1) and (1, 11)
+    shapes."""
     rng = np.random.default_rng(5)
     edge = np.array([0, 1, 2**32 - 1, 2**32, P - 1, P, P + 1, 2**63,
                      2**64 - 2**32, 2**64 - 1], dtype=np.uint64)
@@ -67,14 +68,16 @@ def test_host_matmul_equals_field_products_at_u64_edges():
         assert np.array_equal(
             tgl.to_u64(tpv._matmul_limbs(x, prm[limbs])),
             tgl.to_u64(tpv._mds_layer(x, prm[m])))
+    rho_v, rho_w = tpv._fast_partial_params()[:2]
     for i in (0, tpv.PARTIAL_ROUNDS - 1):
         v = tgl.field_sum(tgl.mul(x, prm["v"][i]), -1)[..., None]
-        assert np.array_equal(tgl.to_u64(tpv._matmul_limbs(x, prm["v_T"][i])),
+        v_t = tpv.limbs([[e] for e in rho_v[i]], "cpu")
+        assert np.array_equal(tgl.to_u64(tpv._matmul_limbs(x, v_t)),
                               tgl.to_u64(v))
         w = tgl.mul(x[..., :1], prm["w"][i])
-        assert np.array_equal(
-            tgl.to_u64(tpv._matmul_limbs(x[..., :1], prm["w_T"][i])),
-            tgl.to_u64(w))
+        w_t = tpv.limbs([rho_w[i]], "cpu")
+        assert np.array_equal(tgl.to_u64(tpv._matmul_limbs(x[..., :1], w_t)),
+                              tgl.to_u64(w))
 
 
 @pytest.mark.parametrize("k", [3, 8, 13, 27])

@@ -158,7 +158,7 @@ def _streamed_statements():
 
 
 @pytest.fixture(scope="module")
-def streamed():
+def streamed(proofs):
     """name -> (port prove_streamed JSON, port prove JSON, reference JSON).
 
     The reference is its `prove` (golden fixtures through the proof
@@ -166,19 +166,24 @@ def streamed():
     streamed proofs equal to those.  Its `prove_streamed` itself runs on
     FibonacciAir(4) in `test_fib_streamed_matches_reference_streamed`; on
     a statement with constant columns under its streaming bound it cannot
-    run (its preprocessed tree is then not a host tree)."""
+    run (its preprocessed tree is then not a host tree).  The range
+    statement's unstreamed proofs are the `proofs` fixture's."""
     from vectorx_tpu_torch.stark.prover import prove_streamed
 
     out = {}
     for name, (tair, jair, knobs) in _streamed_statements().items():
         cfg = tstark.StarkConfig(fri=FriConfig(**knobs))
         trace = tair.build_trace()
+        if name == "range":
+            full, ref = proofs[name][2:]
+        else:
+            full = tser.proof_to_json(tstark.prove(tair, trace, cfg,
+                                                   device="cpu"))
+            ref = jser.proof_to_json(jstark.prove(
+                jair, trace, jstark.StarkConfig(fri=JFriConfig(**knobs))))
         out[name] = tuple(json.dumps(x) for x in (
             tser.proof_to_json(prove_streamed(tair, trace, cfg,
-                                              device="cpu")),
-            tser.proof_to_json(tstark.prove(tair, trace, cfg, device="cpu")),
-            jser.proof_to_json(jstark.prove(
-                jair, trace, jstark.StarkConfig(fri=JFriConfig(**knobs))))))
+                                              device="cpu")), full, ref))
     return out
 
 

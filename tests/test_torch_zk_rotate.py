@@ -23,7 +23,6 @@ from vectorx_tpu.circuits.zk_commitment import \
 from vectorx_tpu.fri.fri import FriConfig as JFriConfig
 from vectorx_tpu.io.fixtures import FixtureChain as JFixtureChain
 from vectorx_tpu.stark import serialize as jser
-from vectorx_tpu.stark import vk as jvk
 from vectorx_tpu.stark.prover import StarkConfig as JStarkConfig
 from vectorx_tpu_torch.circuits import DummyRotate
 from vectorx_tpu_torch.circuits import zk_rotate as tzr
@@ -34,10 +33,10 @@ from vectorx_tpu_torch.hash.sha256 import chained_hash
 from vectorx_tpu_torch.io.abi import RotateInput, RotateOutput
 from vectorx_tpu_torch.io.fixtures import FixtureChain
 from vectorx_tpu_torch.stark import serialize as tser
-from vectorx_tpu_torch.stark import vk
 from vectorx_tpu_torch.stark.prover import StarkConfig
 
 from test_torch_recursion import isolated_caches  # noqa: F401  (autouse)
+from test_torch_recursion import share_vk_caps
 
 torch.set_num_threads(1)
 
@@ -108,10 +107,8 @@ def test_reference_verifier_accepts_port_proof(proofs):
     derives (content-addressed by the same key function); the proofs'
     constant openings are Merkle-checked against them."""
     port = proofs[0]
-    for air in aggregate_children(port):
-        cap = vk.constants_cap(air, CFG, device="cpu")
-        if cap is not None:
-            jvk._store(jvk.cache_key(air.constant_columns(), JCFG), cap)
+    airs = aggregate_children(port)
+    share_vk_caps(airs, airs, CFG, JCFG)
     conv = _convert(port, jzr.ZkRotateProof, JCommitment, tser, jser)
     assert jzr.verify_rotate_zk(conv, max_authorities=8, config=JCFG)
 

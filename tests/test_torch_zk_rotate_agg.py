@@ -4,7 +4,8 @@ torch, at `tests/test_zk_rotate.py`'s chain (4 authorities) and config.
 The machine `Program`s the aggregated statement's tape lowers to, in
 statement mode and in witness mode (205,364 rows), equal the reference's.
 Both tapes replay the reference's component proofs (golden fixtures), the
-port's as a port `ZkRotateProof` carried over as JSON;
+port's as a port `ZkRotateProof` carried over as JSON, and both use the
+verification keys of the children that the port derives;
 `test_torch_zk_rotate.py` holds the port's own component proofs equal to
 them.  The machine proof at 2^18 rows is not run on the CPU
 (`tests/test_zk_rotate.py` skips it too); `chip_smoke.py` phase 9 proves
@@ -27,7 +28,7 @@ from vectorx_tpu_torch.recursion import aggregate
 from vectorx_tpu_torch.recursion.machine import compile_tape
 from vectorx_tpu_torch.stark import serialize as tser
 
-from test_torch_recursion import _program_fields
+from test_torch_recursion import _program_fields, share_vk_caps
 from test_torch_recursion import isolated_caches  # noqa: F401  (autouse)
 from test_torch_zk_rotate import (CFG, INPUT, JCFG, JCHAIN, PUBLIC, _convert,
                                   aggregate_children)
@@ -58,6 +59,7 @@ def test_aggregated_program_matches_reference(proofs, witness):
     b, offs = aggregate._build_tape(airs, CFG,
                                     proofs=kids if witness else None,
                                     device="cpu")
+    share_vk_caps(airs, jairs, CFG, JCFG)
     jb, joffs = jagg._build_tape(jairs, JCFG,
                                  proofs=jkids if witness else None)
     prog, jprog = compile_tape(b), jcompile(jb)

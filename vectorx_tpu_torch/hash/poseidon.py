@@ -230,23 +230,22 @@ def _dev_params(device):
         def t(a):
             return gl.from_u64(np.array(a, dtype=np.uint64), dev)
 
-        # the matrices as 16-bit limbs, (inputs, outputs) per limb, for
-        # the float64 matmuls of `_matmul_limbs`
-        def limbs(m):
-            m = np.array(m, dtype=np.uint64)
-            return torch.stack([
-                torch.from_numpy(((m >> np.uint64(16 * b))
-                                  & np.uint64(0xFFFF)).astype(np.float64))
-                for b in range(4)]).to(dev)
-
         prm = _DEV[key] = {
             "rc": t(rc).reshape(N_ROUNDS, WIDTH), "mds": t(mds),
             "v": t(rho_v), "w": t(rho_w), "c": t(c_prime), "sigma": t(sigma),
-            "mds_T": limbs(np.array(mds, dtype=object).T),
-            "sigma_T": limbs(np.array(sigma, dtype=object).T),
-            "v_T": [limbs([[x] for x in row]) for row in rho_v],
-            "w_T": [limbs([row]) for row in rho_w]}
+            "mds_T": limbs(np.array(mds, dtype=object).T, dev),
+            "sigma_T": limbs(np.array(sigma, dtype=object).T, dev)}
     return prm
+
+
+def limbs(m, device) -> torch.Tensor:
+    """A (K, R) matrix of field elements as its four 16-bit limbs, a
+    (4, K, R) float64 tensor on `device`, for `_matmul_limbs`."""
+    m = np.array(m, dtype=np.uint64)
+    return torch.stack([
+        torch.from_numpy(((m >> np.uint64(16 * b))
+                          & np.uint64(0xFFFF)).astype(np.float64))
+        for b in range(4)]).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -261,14 +260,9 @@ def _sbox(x):
 
 
 def _mds_layer(s, m):
-    """Dense 12x12 field matvec out_i = sum_j M[i][j] * s_j (one lazy sum)."""
+    """Dense 12x12 field matvec out_i = sum_j M[i][j] * s_j (one lazy sum).
+    The field-op version of `_matmul_limbs`, kept as its reference."""
     return gl.field_sum(gl.mul(s[..., None, :], m), -1)
-
-
-# Batches of at least this many states take `_matmul_limbs` for the dense
-# matvecs (on the host faster from about 64 states on; below, its fixed
-# cost per call dominates).
-MATMUL_MIN_STATES = 64
 
 
 def _matmul_limbs(s: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
@@ -303,49 +297,24 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     prm = _dev_params(state.device)
     rc = prm["rc"]
     half = FULL_ROUNDS // 2
-    big = state[..., 0].numel() >= MATMUL_MIN_STATES
 
-    # the dense 12x12 matvecs as exact float64 matmuls (`_matmul_limbs`)
-    # on big batches, where the field-op products' (states, 12, 12)
-    # temporaries cost more than the matmuls
-    def mds(x):
-        return _matmul_limbs(x, prm["mds_T"]) if big else \
-            _mds_layer(x, prm["mds"])
-
-    def sigma(x):
-        return _matmul_limbs(x, prm["sigma_T"]) if big else \
-            _mds_layer(x, prm["sigma"])
-
-    # the sparse rounds' 12- and 11-term products: matmuls on the host,
-    # where they beat the field ops; field ops on the card, where the
-    # matmul path's extra launches would cost more than they save
-    if big and not state.is_cuda:
-        def v_dot(x, i):
-            return _matmul_limbs(x, prm["v_T"][i])
-
-        def w_mul(x0, i):
-            return _matmul_limbs(x0, prm["w_T"][i])
-    else:
-        def v_dot(x, i):
-            return gl.field_sum(gl.mul(x, prm["v"][i]), -1)[..., None]
-
-        def w_mul(x0, i):
-            return gl.mul(x0, prm["w"][i])
-
+    # the dense 12x12 matvecs as exact float64 limb matmuls
+    # (`_matmul_limbs`), which need no (states, 12, 12) temporaries; the
+    # sparse rounds' products as field ops, which launch fewer kernels
     s = state
     for r in range(half):
-        s = mds(_sbox(gl.add(s, rc[r])))
+        s = _matmul_limbs(_sbox(gl.add(s, rc[r])), prm["mds_T"])
     # sparse partial rounds: +c', sbox on lane 0, rho matvec (out0 = v.s,
     # out_{1:} = s_{1:} + w.s0); the dense residue is one sigma matvec
     for i in range(PARTIAL_ROUNDS):
         s = gl.add(s, prm["c"][i])
         s0 = _sbox(s[..., :1])
         s = torch.cat([s0, s[..., 1:]], dim=-1)
-        s = torch.cat([v_dot(s, i), gl.add(s[..., 1:], w_mul(s0, i))],
-                      dim=-1)
-    s = sigma(s)
+        s = torch.cat([gl.field_sum(gl.mul(s, prm["v"][i]), -1)[..., None],
+                       gl.add(s[..., 1:], gl.mul(s0, prm["w"][i]))], dim=-1)
+    s = _matmul_limbs(s, prm["sigma_T"])
     for r in range(half + PARTIAL_ROUNDS, N_ROUNDS):
-        s = mds(_sbox(gl.add(s, rc[r])))
+        s = _matmul_limbs(_sbox(gl.add(s, rc[r])), prm["mds_T"])
     return s
 
 
