@@ -43,21 +43,37 @@ so the script exits non-zero and prints no final line:
    signature rejected; the CPU run agrees.
 7. the header_range statement with the reference deployment's widths (300
    authorities, mixed headers of ~360-2100 B) at tree 16 (the deployment
-   runs 256): the non-ZK `HeaderRangeCircuit.run` and the component-proof
-   `prove_header_range_zk` at the production FRI config on the card, both
-   outputs equal to `DummyHeaderRange`'s; `verify_header_range_zk`
-   accepts, a tampered header hash and a tampered SHA chunk proof are
-   rejected; every kernel must have launched during the proof.
+   runs 256): the non-ZK `HeaderRangeCircuit.run` on the card equal to
+   `DummyHeaderRange`'s output; then the ZK header_range as a user drives
+   it, through the port's contract and gateway (`make_gateway(zk=True,
+   device=cuda)`): `request_header_range`, then `fulfill_next`, which
+   proves once (`prove_header_range_zk` at the production FRI config) and
+   verifies once on the card before the commit; the contract stores the
+   dummy's header hash and commitments; a tampered header hash and a
+   tampered SHA chunk proof are rejected, and a tampered output with the
+   same proof reverts the commit; every kernel must have launched on the
+   gateway path.
 8. the tree=2 ZK statement of the tests at their small config: every
    component proof's JSON on CUDA identical to the JAX reference's proof
    of the same statement (the golden fixtures under `tests/fixtures/`).
-9. the aggregated ZK rotate at 300 authorities and `StarkConfig()`:
+9. the rotate through the port's contract and gateway at 300 authorities
+   (`request_rotate`, `fulfill_next`: the stored next-set hash equals
+   `DummyRotate`'s); then the aggregated ZK rotate at `StarkConfig()`:
    `prove_rotate_zk` / `verify_rotate_zk` (output equal to
    `DummyRotate`'s), then `aggregate_rotate_proof`, one streamed machine
    proof of 724,556 rows (log_n 20), with its stage times, peak device
    memory and the host memory of its trees; `verify_rotate_zk_aggregated`
    accepts, and only then a tampered header hash and a tampered FRI final
    coefficient are rejected; every kernel must have launched on the path.
+10. the port's services and CLI: the operator loop of
+   `tests/test_services.py` (75 blocks, epochs of 20, tree 16) through the
+   non-ZK gateway on the card up to block 70, across three rotations, with
+   the state and events of the same loop through the dummy gateway; then
+   `python -m vectorx_tpu_torch.bin.header_range_256 prove input.json` as
+   a process on its default device and the fixture backend, at tree 256,
+   its output equal to `DummyHeaderRange(256)`'s; the same with
+   `VECTORX_DEVICE=cuda` and no visible CUDA device exits non-zero (that
+   process runs beside the operator loop: it uses no card).
 
 The CPU sides of phases 4 and 6 run in a second process (`--host-checks`)
 while the card runs phases 1-3.  Each phase ends with a line of its
@@ -673,12 +689,15 @@ def phase_header_range(dev, card: str) -> dict:
                                             HeaderRangeCircuit)
     from vectorx_tpu_torch.circuits.zk_commitment import _sha_rows
     from vectorx_tpu_torch.circuits.zk_header_range import (
-        _blake_rows, prove_header_range_zk, verify_header_range_zk)
+        _blake_rows, verify_header_range_zk)
     from vectorx_tpu_torch.field import goldilocks as gl
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.hash.sha256 import chained_hash
     from vectorx_tpu_torch.io.abi import HeaderRangeInput
     from vectorx_tpu_torch.io.fixtures import FixtureChain
+    from vectorx_tpu_torch.services import (ContractError, MockGateway,
+                                            VectorXContract, make_gateway,
+                                            range_key)
     from vectorx_tpu_torch.stark import StarkConfig, prover
     from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir
     from vectorx_tpu_torch.stark.serialize import (proof_from_json,
@@ -715,22 +734,62 @@ def phase_header_range(dev, card: str) -> dict:
     log(f"phase 7: HeaderRangeCircuit({auth}, {max_header}, {tree}).run == "
         f"DummyHeaderRange output, {t_run:.3f} s  [{card}]")
 
+    # the ZK header_range as a user drives it: the contract requests it,
+    # the gateway proves it on the card, verifies the proof and only then
+    # runs the contract's commit
     cfg = StarkConfig(fri=FriConfig())
+    gw = make_gateway(chain, auth, tree, max_header, zk=True,
+                      stark_config=cfg, device=dev)
+    contract = VectorXContract(gw, trusted, chain.get_block_hash(trusted), 1,
+                               chained_hash(chain.era_pubkeys(1)),
+                               header_range_commitment_tree_size=tree)
+    fid = contract.header_range_function_id
+    hr_prover, hr_verifier = gw.provers[fid]
     timer = StageTimer()
+    seen = {}
+
+    def timed_prover(i):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with timer:
+            seen["out"], seen["proof"] = hr_prover(i)
+        torch.cuda.synchronize()
+        seen["prove"] = time.perf_counter() - t0
+        seen["peak"] = torch.cuda.max_memory_allocated(dev)
+        return seen["out"], seen["proof"]
+
+    def timed_verifier(i, out, zkp):
+        t0 = time.perf_counter()
+        ok = hr_verifier(i, out, zkp)
+        seen["verify"] = time.perf_counter() - t0
+        return ok
+
+    gw.register_prover(fid, timed_prover, timed_verifier)
+    contract.request_header_range(1, target)
+    if gw.pending[0][1] != inp:
+        raise AssertionError("the contract's request != phase 7's input")
     reset_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with timer:
-        proof = prove_header_range_zk(chain, inp, tree_size=tree,
-                                      max_authorities=auth, config=cfg,
-                                      device=dev)
-    torch.cuda.synchronize()
-    t_prove = time.perf_counter() - t0
-    launches = read_launches("header_range")
-    peak = torch.cuda.max_memory_allocated(dev)
+    gw.fulfill_next()   # raises ContractError if the gateway rejects
+    t_fulfill = time.perf_counter() - t0
+    launches = read_launches("header_range gateway")
+    proof, t_prove, t_verify, peak = (seen["proof"], seen["prove"],
+                                      seen["verify"], seen["peak"])
     if proof.output_bytes != want:
         raise AssertionError("prove_header_range_zk output != "
                              "DummyHeaderRange output")
+    key = range_key(trusted, target)
+    if (contract.latest_block,
+            contract.block_height_to_header_hash[target],
+            contract.state_root_commitments[key],
+            contract.data_root_commitments[key]) != \
+            (target, want[:32], want[32:64], want[64:96]):
+        raise AssertionError("the contract's stored header hash and "
+                             "commitments != DummyHeaderRange output")
+    log(f"phase 7: make_gateway(zk=True, device={dev}): request_header_range"
+        f"(1, {target}) fulfilled in {t_fulfill:.3f} s (one prove, one "
+        f"verify on the card); the contract stores the dummy's header hash "
+        f"and state and data commitments  [{card}]")
     b2_shapes, pos = [], 0
     for sz in proof.header_chunk_sizes:
         rows = sum(_blake_rows(h) for h in proof.headers[pos:pos + sz])
@@ -751,14 +810,11 @@ def phase_header_range(dev, card: str) -> dict:
         f"GiB, peak / standing {peak / standing:.3f}  [{card}]")
     log(f"phase 7: stage seconds (NTT and Poseidon run inside the stages; "
         f"the trace builds are host numpy): {timer.summary()}  [{card}]")
-    log(f"phase 7: kernel launches on the header_range path: {launches}")
+    log(f"phase 7: kernel launches on the header_range gateway path (prove "
+        f"and verify): {launches}")
 
-    t0 = time.perf_counter()
-    ok = verify_header_range_zk(proof, tree, cfg, device=dev,
-                                rng=random.Random(8))
-    t_verify = time.perf_counter() - t0
-    if not ok:
-        raise AssertionError("verify_header_range_zk rejected the proof")
+    # the gateway's verifier accepted this proof; now it turns tampered
+    # ones away, and a tampered output with this proof reverts the commit
     bad = dataclasses.replace(
         proof, header_hashes=[bytes(32)] + list(proof.header_hashes[1:]))
     if verify_header_range_zk(bad, tree, cfg, device=dev):
@@ -770,9 +826,26 @@ def phase_header_range(dev, card: str) -> dict:
                               sha_proofs=[sha0] + list(proof.sha_proofs[1:]))
     if verify_header_range_zk(bad, tree, cfg, device=dev):
         raise AssertionError("tampered SHA chunk proof accepted")
-    log(f"phase 7: verify_header_range_zk accepted in {t_verify:.3f} s; "
-        f"tampered header hash and tampered SHA chunk proof rejected  "
-        f"[{card}]")
+    bad_out = bytes([want[0] ^ 1]) + want[1:]
+    evil = MockGateway()
+    evil.register_prover(fid, lambda i: (bad_out, proof), hr_verifier)
+    fresh = VectorXContract(evil, trusted, chain.get_block_hash(trusted), 1,
+                            chained_hash(chain.era_pubkeys(1)),
+                            header_range_commitment_tree_size=tree)
+    fresh.request_header_range(1, target)
+    try:
+        evil.fulfill_next()
+        raise AssertionError("a tampered output with the gateway's proof "
+                             "was committed")
+    except ContractError:
+        pass
+    if fresh.latest_block != trusted or fresh.data_root_commitments or \
+            target in fresh.block_height_to_header_hash:
+        raise AssertionError("a rejected fulfillment changed the contract")
+    log(f"phase 7: the gateway's verify_header_range_zk accepted in "
+        f"{t_verify:.3f} s; tampered header hash and tampered SHA chunk "
+        f"proof rejected; a tampered output with the same proof reverts "
+        f"the commit (ContractError, contract unchanged)  [{card}]")
     return launches
 
 
@@ -1053,6 +1126,8 @@ def phase_rotate(dev, card: str) -> dict:
     from vectorx_tpu_torch.io.fixtures import FixtureChain
     from vectorx_tpu_torch.recursion import aggregate, progcache
     from vectorx_tpu_torch.recursion.machine import MachineAir
+    from vectorx_tpu_torch.services import (VectorXContract, compute_genesis,
+                                            make_gateway)
     from vectorx_tpu_torch.stark import StarkConfig, prover, stages
     from vectorx_tpu_torch.stark.serialize import (proof_from_json,
                                                    proof_to_json)
@@ -1068,6 +1143,25 @@ def phase_rotate(dev, card: str) -> dict:
     cfg = StarkConfig()
     log(f"phase 9: fixture chain, {auth} authorities, DummyRotate output "
         f"({time.perf_counter() - t0:.2f} s)")
+
+    # the rotate as a user drives it: the contract requests it, the
+    # gateway runs RotateCircuit (host signature and header checks)
+    t0 = time.perf_counter()
+    gw = make_gateway(chain, auth, device=dev)
+    g = compute_genesis(chain, 7)
+    contract = VectorXContract(gw, g.height, g.header_hash,
+                               g.authority_set_id, g.authority_set_hash)
+    contract.request_rotate(1)
+    if gw.pending[0][1] != inp:
+        raise AssertionError("the contract's rotate request != phase 9's "
+                             "input")
+    gw.fulfill_next()
+    if contract.authority_set_id_to_hash.get(2) != want:
+        raise AssertionError("the contract's next set hash != DummyRotate "
+                             "output")
+    log(f"phase 9: make_gateway(device={dev}): request_rotate(1) fulfilled "
+        f"in {time.perf_counter() - t0:.3f} s; the contract stores "
+        f"DummyRotate's hash of set 2  [{card}]")
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1183,6 +1277,161 @@ def phase_rotate(dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the operator loop and a circuit CLI
+# ---------------------------------------------------------------------------
+
+def contract_text(contract) -> str:
+    """A contract's state and event list as canonical JSON text."""
+    def enc(v):
+        if isinstance(v, bytes):
+            return v.hex()
+        if isinstance(v, dict):
+            return {(k.hex() if isinstance(k, bytes) else str(k)): enc(x)
+                    for k, x in v.items()}
+        return v
+
+    fields = ("latest_block", "latest_authority_set_id", "frozen",
+              "block_height_to_header_hash", "authority_set_id_to_hash",
+              "data_root_commitments", "state_root_commitments",
+              "range_start_blocks")
+    state = {f: enc(getattr(contract, f)) for f in fields}
+    state["events"] = [[e.name, enc(e.args)] for e in contract.events]
+    return json.dumps(state, sort_keys=True)
+
+
+def cli(name: str, args: list, cwd: str, **env) -> subprocess.Popen:
+    """`python -m vectorx_tpu_torch.bin.<name>` started in `cwd`, the
+    checkout on its path, `env` over this process's environment (no
+    VECTORX_DEVICE of its own: the entry point's default)."""
+    full = {k: v for k, v in os.environ.items() if k != "VECTORX_DEVICE"}
+    full.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                VECTORX_BACKEND="fixture", **env)
+    return subprocess.Popen(
+        [sys.executable, "-m", f"vectorx_tpu_torch.bin.{name}", *args],
+        cwd=cwd, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def operator_loop(dev, card: str) -> None:
+    """tests/test_services.py's system: the operator loop through the
+    non-ZK gateway on the card, across three rotations, against the same
+    loop through the dummy gateway."""
+    import torch
+
+    from vectorx_tpu_torch.io.fixtures import FixtureChain
+    from vectorx_tpu_torch.services import (OperatorConfig, VectorXContract,
+                                            VectorXOperator, compute_genesis,
+                                            make_gateway)
+
+    chain = FixtureChain(seed=9, num_blocks=75, epoch_length=20,
+                         authorities_per_era=lambda e: 4)
+
+    def loop(**gateway):
+        gw = make_gateway(chain, max_authority_set_size=8,
+                          max_num_headers=16, **gateway)
+        g = compute_genesis(chain, 4)
+        contract = VectorXContract(
+            gw, g.height, g.header_hash, g.authority_set_id,
+            g.authority_set_hash, header_range_commitment_tree_size=16)
+        op = VectorXOperator(contract, chain,
+                             OperatorConfig(update_delay_blocks=10))
+        fulfilled = 0
+        for _ in range(30):
+            op.run_once()
+            while gw.pending:
+                gw.fulfill_next()
+                fulfilled += 1
+            if contract.latest_block >= 70:
+                break
+        return contract, fulfilled
+
+    t0 = time.perf_counter()
+    real, fulfilled = loop(device=dev)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    dummy, _ = loop(dummy=True)
+    if real.latest_block < 70 or not {1, 2, 3} <= set(
+            real.authority_set_id_to_hash):
+        raise AssertionError(f"the operator loop stopped at block "
+                             f"{real.latest_block}")
+    if contract_text(real) != contract_text(dummy):
+        raise AssertionError("the operator loop through the card's gateway "
+                             "!= the loop through the dummy gateway")
+    log(f"phase 10: operator loop through make_gateway(device={dev}): "
+        f"{fulfilled} requests fulfilled up to block {real.latest_block} "
+        f"(sets {sorted(real.authority_set_id_to_hash)}), {len(real.events)} "
+        f"events, in {t_loop:.3f} s; state and events == the dummy "
+        f"gateway's loop  [{card}]")
+
+
+def phase_services(dev, card: str) -> None:
+    from vectorx_tpu_torch.circuits import DummyHeaderRange
+    from vectorx_tpu_torch.config import Config, make_fetcher
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import HeaderRangeInput
+
+    # the input of (b) and (c): the longest range the fixture backend's
+    # chain justifies within one set, in the deployment's 256-header tree
+    fetcher = make_fetcher(Config())
+    e = fetcher.epoch_length
+    inp = HeaderRangeInput(e, fetcher.get_block_hash(e), 1,
+                           chained_hash(fetcher.era_pubkeys(1)),
+                           2 * e).encode()
+    want = DummyHeaderRange(256).run(inp, fetcher)
+    tmp = tempfile.mkdtemp(prefix="vectorx-cli-")
+    for sub in ("cuda", "none"):
+        os.mkdir(os.path.join(tmp, sub))
+        with open(os.path.join(tmp, sub, "input.json"), "w") as f:
+            json.dump({"data": {"input": "0x" + inp.hex()}}, f)
+    # (c) the header_range_256 CLI with cuda asked for and no CUDA device
+    # visible must exit non-zero; it uses no card, so it runs beside (a),
+    # the operator loop
+    t_none = time.perf_counter()
+    none = cli("header_range_256", ["prove", "input.json"],
+               os.path.join(tmp, "none"), VECTORX_DEVICE="cuda",
+               CUDA_VISIBLE_DEVICES="")
+    try:
+        operator_loop(dev, card)
+
+        # (b) the header_range_256 CLI on the fixture backend at the
+        # deployment's tree, on its default device
+        t0 = time.perf_counter()
+        proc = cli("header_range_256", ["prove", "input.json"],
+                   os.path.join(tmp, "cuda"))
+        _, err = proc.communicate(timeout=300)
+        t_cli = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"header_range_256 prove exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        with open(os.path.join(tmp, "cuda", "output.json")) as f:
+            got = json.load(f)["data"]["output"]
+        if got != "0x" + want.hex():
+            raise AssertionError("header_range_256 prove output != "
+                                 "DummyHeaderRange(256) output")
+        log(f"phase 10: python -m vectorx_tpu_torch.bin.header_range_256 "
+            f"prove ({e} headers ({e}, {2 * e}] in the 256-header tree, "
+            f"fixture backend, default device): output == "
+            f"DummyHeaderRange(256), {t_cli:.3f} s for the process  "
+            f"[{card}]")
+
+        _, err = none.communicate(timeout=300)
+        t_none = time.perf_counter() - t_none
+        if none.returncode == 0 or os.path.exists(
+                os.path.join(tmp, "none", "output.json")):
+            raise AssertionError("header_range_256 with no visible CUDA "
+                                 "device did not exit non-zero")
+        log(f"phase 10: the same with VECTORX_DEVICE=cuda and "
+            f"CUDA_VISIBLE_DEVICES=\"\" (started before (a), beside it): "
+            f"exit {none.returncode}, {t_none:.3f} s after its start "
+            f"({err.strip().splitlines()[-1]})")
+    finally:
+        if none.poll() is None:
+            none.kill()
+            none.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1279,6 +1528,8 @@ def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
     done(8)
     rot_launches = phase_rotate(dev, card)
     done(9)
+    phase_services(dev, card)
+    done(10)
 
     for name in launches:
         launches[name] += hr_launches[name] + rot_launches[name]

@@ -273,10 +273,19 @@ def test_port_imports_without_jax():
         "       'stark.blake2b_air', 'stark.sha256_air',\n"
         "       'stark.poseidon_air', 'circuits.zk_rotate', 'recursion',\n"
         "       'recursion.ssa', 'recursion.shadow', 'recursion.machine',\n"
-        "       'recursion.progcache', 'recursion.aggregate'}\n"
+        "       'recursion.progcache', 'recursion.aggregate',\n"
+        "       'config', 'io.keccak', 'io.store', 'io.avail_rpc',\n"
+        "       'services', 'services.contract', 'services.prover_service',\n"
+        "       'services.genesis', 'services.fill_block_range',\n"
+        "       'services.operator', 'services.indexer', 'services.events',\n"
+        "       'bin', 'bin._entrypoint', 'bin.header_range_256',\n"
+        "       'bin.header_range_512', 'bin.rotate',\n"
+        "       'bin.dummy_header_range_256', 'bin.dummy_header_range_512',\n"
+        "       'bin.dummy_rotate', 'bin.operator', 'bin.indexer',\n"
+        "       'bin.events', 'bin.genesis', 'bin.fill_block_range'}\n"
         "missing = {'vectorx_tpu_torch.' + m for m in new} - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 48, names\n"
+        "assert len(names) >= 77, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -195,14 +195,19 @@ def verify_subchain(fetcher, trusted_block: int, trusted_header_hash: bytes,
     if root.end_block != target_block:
         raise SubchainError("end block != target block")
 
-    # ---- commitments: batched SHA-256 Merkle over the full tree ----------
+    # ---- commitments: batched SHA-256 Merkle over the tree -------------
     # The per-leaf 8-ary roots + SHA256(left||right) reduce tree is exactly
-    # the full binary tree over `total` zero-padded leaves, so one batched
-    # build per commitment (bit-exact with input/mod.rs:464-489).
-    state_arr = np.frombuffer(b"".join(root.state_leaves),
-                              dtype=np.uint8).reshape(total, 32)
-    data_arr = np.frombuffer(b"".join(root.data_leaves),
-                             dtype=np.uint8).reshape(total, 32)
+    # the full binary tree over the zero-padded leaves, so one batched
+    # build per commitment (bit-exact with input/mod.rs:464-489).  The
+    # tree has `max_num_headers` leaves, as the fetcher's commitments, the
+    # dummy and the ZK statement have: at trees 2 and 4 `total` is 8, and
+    # the reference's root over all 8 leaves is another value
+    # (`vectorx_tpu/circuits/subchain.py:82-83`, a fault kept there).
+    n = max_num_headers
+    state_arr = np.frombuffer(b"".join(root.state_leaves[:n]),
+                              dtype=np.uint8).reshape(n, 32)
+    data_arr = np.frombuffer(b"".join(root.data_leaves[:n]),
+                             dtype=np.uint8).reshape(n, 32)
     return SubchainOutput(
         target_header_hash=root.end_header_hash,
         state_root_merkle_root=sha256_merkle_root_device(state_arr, device),

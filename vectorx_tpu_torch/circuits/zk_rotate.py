@@ -17,8 +17,9 @@ proven, the structural byte checks run on public data):
 `aggregate_rotate_proof` folds every component STARK into ONE verifier-VM
 proof (recursion/aggregate.py).
 
-Port of `vectorx_tpu.circuits.zk_rotate` (the in-ZK justification path is
-not ported): every proof runs on the `device` the caller names, and the
+Port of `vectorx_tpu.circuits.zk_rotate`, all of it (that module has no
+in-ZK justification code; `zk_justification` is its own module, ROADMAP
+A-4): every proof runs on the `device` the caller names, and the
 verifiers derive their verification keys and run the batched signature
 check there, with the randomizers drawn from `rng`.
 """
