@@ -74,12 +74,29 @@ so the script exits non-zero and prints no final line:
    its output equal to `DummyHeaderRange(256)`'s; the same with
    `VECTORX_DEVICE=cuda` and no visible CUDA device exits non-zero (that
    process runs beside the operator loop: it uses no card).
+11. in a second process on the card (`--phase-11 <dir>`), started as soon
+   as phase 7 has its proof and run beside phases 8-10: phase 7's
+   component proofs folded into one machine proof by
+   `aggregate_header_range_proof` (469,783 rows, log_n 19, at
+   `StarkConfig(fri=FriConfig())`), with its stage times, peak device
+   memory and launches; `verify_header_range_zk_aggregated` accepts, then
+   rejects a tampered header hash, a tampered FRI final coefficient and
+   the state and data trees' child statements swapped.  Then
+   `Blake2bAir(bind="public")` over the first 4 of phase 7's headers and
+   `Sha256Air(bind="public")` over 8 of its state-tree nodes, proved and
+   verified on the card, a changed message limb and digest limb
+   rejected, `public_shape`'s constant columns equal to the full AIR's,
+   and their proof JSON equal to the CPU's proofs of the same statements;
+   and `prove_merkle_root` over phase 7's 16 state roots, verified, its
+   root equal to `sha256_merkle_root`'s, a tampered root rejected.  The
+   parent waits for the process before its summary; a non-zero exit, a
+   missing result line or a timeout fails the script.
 
-The CPU sides of phases 4 and 6 run in a second process (`--host-checks`)
-while the card runs phases 1-3.  Each phase ends with a line of its
-seconds and the seconds since the start.  The last lines are a JSON record
-of the kernels, the card's name and power limit, and `{"ok": true,
-"device": {...}}`.
+The CPU sides of phases 4, 6 and 11 run in a second process
+(`--host-checks <dir>`), started before phase 1.  Each phase ends with a
+line of its seconds and the seconds since the start.  The last lines are
+a JSON record of the kernels, the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -682,7 +699,45 @@ def phase_ed25519(dev, card: str, host: "HostChecks") -> None:
 # Phase 7: the header_range statement at full size
 # ---------------------------------------------------------------------------
 
-def phase_header_range(dev, card: str) -> dict:
+# the reference deployment's header_range with 300 authorities and headers
+# cycling through 100/10/60/25 % of a 2048 B bound, at tree 16 (the
+# deployment's is 256) so that the whole script fits its limit
+HR_TREE, HR_AUTH = 16, 300
+
+
+def header_range_chain():
+    """Phase 7's fixture chain and its blocks (trusted, target]."""
+    from vectorx_tpu_torch.io.fixtures import FixtureChain
+
+    tree = HR_TREE
+    base, frac = 2048 - 180, (100, 10, 60, 25)
+    chain = FixtureChain(seed=19, num_blocks=3 * tree + 2,
+                         epoch_length=2 * tree,
+                         authorities_per_era=lambda e: HR_AUTH,
+                         extension_bytes=lambda b: base * frac[b % 4] // 100)
+    return chain, 2 * tree, 3 * tree
+
+
+def public_bind_statements(headers: list) -> list:
+    """Phase 11's public-bind statements, depth cuts of phase 7's: the
+    Blake2b hashes of the first 4 of its headers and the SHA-256 nodes of
+    the first level of its state-root tree (8 nodes over 16 leaves), each
+    with `bind="public"`; as (name, AIR, the shape `public_shape` takes)."""
+    from vectorx_tpu_torch.circuits.subchain import decode_header_fields
+    from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir
+    from vectorx_tpu_torch.stark.sha256_air import Sha256Air
+
+    roots = [decode_header_fields(h, len(h)).state_root for h in headers]
+    nodes = [roots[2 * i] + roots[2 * i + 1] for i in range(len(roots) // 2)]
+    return [("Blake2bAir", Blake2bAir(headers[:4], bind="public"),
+             [len(h) for h in headers[:4]]),
+            ("Sha256Air", Sha256Air(nodes[:8], bind="public"),
+             [2] * len(nodes[:8]))]
+
+
+def phase_header_range(dev, card: str):
+    """Phase 7; returns the launches on the gateway path and the gateway's
+    ZK proof, which phase 11 aggregates."""
     import torch
 
     from vectorx_tpu_torch.circuits import (DummyHeaderRange,
@@ -694,7 +749,6 @@ def phase_header_range(dev, card: str) -> dict:
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.hash.sha256 import chained_hash
     from vectorx_tpu_torch.io.abi import HeaderRangeInput
-    from vectorx_tpu_torch.io.fixtures import FixtureChain
     from vectorx_tpu_torch.services import (ContractError, MockGateway,
                                             VectorXContract, make_gateway,
                                             range_key)
@@ -703,17 +757,9 @@ def phase_header_range(dev, card: str) -> dict:
     from vectorx_tpu_torch.stark.serialize import (proof_from_json,
                                                    proof_to_json)
 
-    # the reference deployment's header_range with 300 authorities and
-    # headers cycling through 100/10/60/25 % of a 2048 B bound, at tree 16
-    # (the deployment's is 256) so that the whole script fits its limit
-    tree, auth, max_header = 16, 300, 35840
-    base, frac = 2048 - 180, (100, 10, 60, 25)
+    tree, auth, max_header = HR_TREE, HR_AUTH, 35840
     t0 = time.perf_counter()
-    chain = FixtureChain(seed=19, num_blocks=3 * tree + 2,
-                         epoch_length=2 * tree,
-                         authorities_per_era=lambda e: auth,
-                         extension_bytes=lambda b: base * frac[b % 4] // 100)
-    trusted, target = 2 * tree, 3 * tree
+    chain, trusted, target = header_range_chain()
     inp = HeaderRangeInput(trusted, chain.get_block_hash(trusted), 1,
                            chained_hash(chain.era_pubkeys(1)),
                            target).encode()
@@ -846,7 +892,7 @@ def phase_header_range(dev, card: str) -> dict:
         f"{t_verify:.3f} s; tampered header hash and tampered SHA chunk "
         f"proof rejected; a tampered output with the same proof reverts "
         f"the commit (ContractError, contract unchanged)  [{card}]")
-    return launches
+    return launches, proof
 
 
 # ---------------------------------------------------------------------------
@@ -1035,31 +1081,76 @@ def host_checks() -> dict:
     return out
 
 
+def host_public_bind(out_dir: str) -> dict:
+    """The CPU side of phase 11's public bind: the proofs of
+    `public_bind_statements` over phase 7's headers at `FriConfig()`, on
+    the CPU, their JSON written to `out_dir`; the seconds of each."""
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.stark import StarkConfig, prove
+
+    chain, trusted, target = header_range_chain()
+    headers = [chain.get_encoded_header(b)
+               for b in range(trusted + 1, target + 1)]
+    cfg, out = StarkConfig(fri=FriConfig()), {}
+    for name, air, _ in public_bind_statements(headers):
+        t0 = time.perf_counter()
+        text = proof_text(prove(air, air.build_trace(), cfg, device="cpu"))
+        with open(os.path.join(out_dir, f"public_{name}.json"), "w") as f:
+            f.write(text)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
 class HostChecks:
-    """`host_checks` in a second process (`chip_smoke.py --host-checks`),
-    started before phase 1 so that the host proves while the card runs
-    the earlier phases; its caches live in a directory of its own, so it
-    derives every key and program itself."""
+    """`host_checks`, then `host_public_bind`, in a second process
+    (`chip_smoke.py --host-checks <dir>`), started before phase 1 so that
+    the host proves while the card runs the other phases.  It prints one
+    JSON line for each; the public-bind proofs go to files in `<dir>`.
+    Its caches live in a directory of their own, so it derives every key
+    and program itself."""
 
     def __init__(self):
         self.tmp = tempfile.mkdtemp(prefix="vectorx-host-checks-")
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--host-checks"],
-            stdout=subprocess.PIPE, text=True,
-            env=dict(os.environ, VECTORX_VK_CACHE=self.tmp))
+            [sys.executable, os.path.abspath(__file__), "--host-checks",
+             self.tmp], stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ,
+                     VECTORX_VK_CACHE=os.path.join(self.tmp, "vk")))
         self._result = None
 
     def result(self) -> dict:
+        """The first line: phases 4 and 6."""
         if self._result is None:
             t0 = time.perf_counter()
-            out, _ = self.proc.communicate()
-            if self.proc.returncode != 0:
+            line = self.proc.stdout.readline()
+            if not line:
+                self.proc.wait()
                 raise AssertionError(f"the host-check process failed (exit "
                                      f"{self.proc.returncode})")
-            self._result = json.loads(out.strip().splitlines()[-1])
+            self._result = json.loads(line)
             log(f"host checks: waited {time.perf_counter() - t0:.2f} s for "
-                f"the host-check process")
+                f"the host-check process's first line")
         return self._result
+
+    def public_bind(self, timeout: float) -> dict:
+        """The second line, after the process ended: the seconds of each
+        public-bind proof, whose JSON is in `proof_path(name)`."""
+        self.result()
+        t0 = time.perf_counter()
+        try:
+            out, _ = self.proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the host-check process did not end "
+                                 f"within {timeout:.0f} s")
+        if self.proc.returncode != 0 or not out.strip():
+            raise AssertionError(f"the host-check process failed (exit "
+                                 f"{self.proc.returncode})")
+        log(f"host checks: waited {time.perf_counter() - t0:.2f} s for the "
+            f"host-check process's public-bind proofs")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def proof_path(self, name: str) -> str:
+        return os.path.join(self.tmp, f"public_{name}.json")
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -1432,6 +1523,362 @@ def phase_services(dev, card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the aggregated header_range, the public bind and zk_merkle, in a
+# second process on the card
+# ---------------------------------------------------------------------------
+
+# The aggregated machine of phase 7's statement (rows, log_n), as the
+# statement tape gives it on the CPU
+HR_AGG_MACHINE = (469783, 19)
+# Seconds since the start by which the phase-11 and host-check processes
+# must have ended (the script's limit is 1200 s)
+PHASE11_DEADLINE_S = 1150
+
+_HEX_FIELDS = ("input_bytes", "output_bytes", "headers", "header_hashes",
+               "state_levels", "data_levels")
+_JUSTIFICATION_HEX = ("signed_message", "pubkeys", "signatures", "block_hash")
+
+
+def _hex(v):
+    """bytes, and lists of them at any depth, as hex strings."""
+    return v.hex() if isinstance(v, bytes) else [_hex(x) for x in v]
+
+
+def _unhex(v):
+    return bytes.fromhex(v) if isinstance(v, str) else [_unhex(x) for x in v]
+
+
+def write_header_range_proof(proof, path: str) -> None:
+    """Phase 7's `ZkHeaderRangeProof` as JSON: its public fields, its
+    justification and its component proofs as the port's proof JSON."""
+    from vectorx_tpu_torch.stark.serialize import proof_to_json
+
+    just = dataclasses.asdict(proof.justification)
+    d = {f: _hex(getattr(proof, f)) for f in _HEX_FIELDS}
+    d.update(header_chunk_sizes=proof.header_chunk_sizes,
+             sha_chunk_sizes=proof.sha_chunk_sizes,
+             header_proofs=[proof_to_json(p) for p in proof.header_proofs],
+             sha_proofs=[proof_to_json(p) for p in proof.sha_proofs],
+             justification={k: _hex(v) if k in _JUSTIFICATION_HEX else v
+                            for k, v in just.items()})
+    with open(path, "w") as f:
+        json.dump(d, f)
+
+
+def read_header_range_proof(path: str):
+    from vectorx_tpu_torch.circuits.zk_header_range import ZkHeaderRangeProof
+    from vectorx_tpu_torch.io.fixtures import JustificationData
+    from vectorx_tpu_torch.stark.serialize import proof_from_json
+
+    with open(path) as f:
+        d = json.load(f)
+    just = {k: _unhex(v) if k in _JUSTIFICATION_HEX else v
+            for k, v in d["justification"].items()}
+    return ZkHeaderRangeProof(
+        **{f: _unhex(d[f]) for f in _HEX_FIELDS},
+        header_chunk_sizes=d["header_chunk_sizes"],
+        sha_chunk_sizes=d["sha_chunk_sizes"],
+        header_proofs=[proof_from_json(p) for p in d["header_proofs"]],
+        sha_proofs=[proof_from_json(p) for p in d["sha_proofs"]],
+        justification=JustificationData(**just))
+
+
+def phase_aggregated_header_range(dev, card: str, zk, cfg) -> dict:
+    """Phase 7's component proofs folded into one machine proof on the
+    card, stage-timed; the aggregated verifier accepts it, then rejects a
+    tampered header hash, a tampered FRI final coefficient and the state
+    and data trees' child statements swapped.  Returns the launches of
+    the aggregation and its verify."""
+    import torch
+
+    from vectorx_tpu_torch.circuits import zk_header_range as zhr
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.io.abi import HeaderRangeOutput
+    from vectorx_tpu_torch.recursion import aggregate, progcache
+    from vectorx_tpu_torch.recursion.machine import MachineAir
+    from vectorx_tpu_torch.stark import prover
+    from vectorx_tpu_torch.stark.serialize import (proof_from_json,
+                                                   proof_to_json)
+
+    tree = 2 * len(zk.state_levels[0])
+    airs = zhr.aggregate_children(zk)
+    log(f"phase 11: aggregated header_range of phase 7's proof (tree "
+        f"{tree}, {len(zk.justification.pubkeys)} authorities, "
+        f"FriConfig()): children (AIR, log_n, width) "
+        f"{[(type(a).__name__, a.log_n, a.width) for a in airs]}")
+    timer = StageTimer(extra=[
+        (aggregate, "_build_tape"), (aggregate, "compile_tape"),
+        (MachineAir, "build_trace"), (MachineAir, "constant_columns"),
+        (prover, "prove_streamed")])
+    orig_prove, stage = aggregate.prove, {}
+
+    def machine_prove(*a, **kw):
+        # the machine proof alone, and the Poseidon seconds inside it
+        p0 = timer.times.get("permute", 0.0)
+        t0 = time.perf_counter()
+        out = orig_prove(*a, **kw)
+        torch.cuda.synchronize()
+        stage["prove"] = time.perf_counter() - t0
+        stage["permute"] = timer.times.get("permute", 0.0) - p0
+        return out
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    aggregate.prove = machine_prove
+    t0 = time.perf_counter()
+    try:
+        with timer:
+            agg = zhr.aggregate_header_range_proof(zk, cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        aggregate.prove = orig_prove
+    t_agg = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    prog = progcache.get(aggregate._stmt_key(airs, cfg))[0]
+    machine = MachineAir(prog)
+    cols = prover._commit_cols(machine)
+    streamed = "prove_streamed" in timer.times
+    t = timer.times
+    log(f"phase 11: aggregate_header_range_proof: {t_agg:.3f} s; machine "
+        f"{prog.n_rows} rows (log_n {machine.log_n}; predicted "
+        f"{HR_AGG_MACHINE[0]}, {HR_AGG_MACHINE[1]}), "
+        f"{cols} committed columns x 2^{machine.log_n + cfg.rate_bits} "
+        f"points, {'streamed' if streamed else 'not streamed'}; peak device "
+        f"memory {peak / 2**30:.3f} GiB  [{card}]")
+    log(f"phase 11: tape {t['_build_tape']:.3f} s, compile_tape "
+        f"{t['compile_tape']:.3f} s, trace build "
+        f"{t['MachineAir.build_trace']:.3f} s, constant columns "
+        f"{t['MachineAir.constant_columns']:.3f} s, prove "
+        f"{stage['prove']:.3f} s (Poseidon permute {stage['permute']:.3f} s, "
+        f"{stage['permute'] / stage['prove'] * 100:.1f} % of it)  [{card}]")
+    log(f"phase 11: stage seconds (stages overlap: NTT and Poseidon run "
+        f"inside them): {timer.summary()}  [{card}]")
+    if (prog.n_rows, machine.log_n) != HR_AGG_MACHINE:
+        raise AssertionError(f"machine program: {prog.n_rows} rows, log_n "
+                             f"{machine.log_n} (want {HR_AGG_MACHINE})")
+
+    # accept first: the verifier turns any exception into a rejection, so
+    # a rejection counts only after the same verifier accepted
+    t0 = time.perf_counter()
+    ok = zhr.verify_header_range_zk_aggregated(agg, tree, cfg, device=dev,
+                                               rng=random.Random(11))
+    t_ver = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("verify_header_range_zk_aggregated rejected the "
+                             "proof")
+    launches = read_launches("aggregated header_range")
+    t0 = time.perf_counter()
+    bad = dataclasses.replace(
+        agg, header_hashes=[bytes(32)] + list(agg.header_hashes[1:]))
+    if zhr.verify_header_range_zk_aggregated(bad, tree, cfg, device=dev,
+                                             rng=random.Random(11)):
+        raise AssertionError("tampered header hash accepted")
+    outer = proof_from_json(proof_to_json(agg.aggregated_proof))
+    c0, c1 = outer.fri_proof.final_coeffs[0]
+    outer.fri_proof.final_coeffs[0] = ((c0 + 1) % gl.P, c1)
+    bad = dataclasses.replace(agg, aggregated_proof=outer)
+    if zhr.verify_header_range_zk_aggregated(bad, tree, cfg, device=dev,
+                                             rng=random.Random(11)):
+        raise AssertionError("tampered FRI final coefficient accepted")
+    # the state tree's SHA-256 children claim the data tree's digests and
+    # the other way round: the public wiring holds (the output's roots are
+    # swapped too), only the machine proof's child statements differ
+    out = HeaderRangeOutput.decode(agg.output_bytes)
+    bad = dataclasses.replace(
+        agg, state_levels=agg.data_levels, data_levels=agg.state_levels,
+        output_bytes=HeaderRangeOutput(
+            out.target_header_hash, out.data_root_commitment,
+            out.state_root_commitment).encode())
+    if zhr.verify_header_range_zk_aggregated(bad, tree, cfg, device=dev,
+                                             rng=random.Random(11)):
+        raise AssertionError("swapped child statements accepted")
+    log(f"phase 11: verify_header_range_zk_aggregated accepted in "
+        f"{t_ver:.3f} s; then a tampered header hash, a tampered FRI final "
+        f"coefficient and the state and data trees' child statements "
+        f"swapped rejected ({time.perf_counter() - t0:.3f} s)  [{card}]")
+    log(f"phase 11: kernel launches on the aggregated header_range path "
+        f"(aggregation and verify): {launches}")
+    return launches
+
+
+def phase_public_bind(dev, card: str, zk, cfg, out_dir: str) -> dict:
+    """The public-bind statements of `public_bind_statements` proved and
+    verified on the card (their proof JSON goes to `out_dir`, for the
+    parent to hold against the CPU's), a changed message limb and digest
+    limb rejected, `public_shape`'s constant columns equal to the full
+    AIR's; then `prove_merkle_root` over phase 7's 16 state roots.
+    Returns the launches of this path."""
+    import numpy as np
+    import torch
+
+    from vectorx_tpu_torch.circuits.subchain import decode_header_fields
+    from vectorx_tpu_torch.circuits.zk_merkle import (prove_merkle_root,
+                                                      verify_merkle_root)
+    from vectorx_tpu_torch.io.abi import HeaderRangeOutput
+    from vectorx_tpu_torch.merkle import sha256_merkle_root
+    from vectorx_tpu_torch.stark import prove, verify
+
+    reset_launches()
+    for name, air, shape in public_bind_statements(zk.headers):
+        t0 = time.perf_counter()
+        proof = prove(air, air.build_trace(), cfg, device=dev)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not verify(air, proof, cfg, device=dev):
+            raise AssertionError(f"public-bind {name}: verify rejected")
+        t_verify = time.perf_counter() - t0
+        text = proof_text(proof)
+        with open(os.path.join(out_dir, f"public_{name}.json"), "w") as f:
+            f.write(text)
+        for idx in (1, -1):   # a message limb; a digest limb
+            bad = type(air)(air.messages, bind="public")
+            pubs = bad.public_inputs()
+            pubs[idx] = (pubs[idx] + 1) % (1 << 32)
+            bad.public_inputs = lambda p=pubs: p
+            if verify(bad, proof, cfg, device=dev):
+                raise AssertionError(f"public-bind {name}: changed public "
+                                     f"{idx} accepted")
+        if not np.array_equal(type(air).public_shape(shape)
+                              .constant_columns(), air.constant_columns()):
+            raise AssertionError(f"public-bind {name}: public_shape's "
+                                 f"constant columns != the full AIR's")
+        log(f"phase 11: {name}(bind=\"public\") over {len(shape)} messages "
+            f"(log_n {air.log_n}, {len(air.public_inputs())} publics, "
+            f"FriConfig()): prove {t_prove:.3f} s, verify {t_verify:.3f} s; "
+            f"a changed message limb and digest limb rejected; public_shape"
+            f"({shape}) gives the same constant columns  [{card}]")
+
+    leaves = [decode_header_fields(h, len(h)).state_root for h in zk.headers]
+    t0 = time.perf_counter()
+    mp = prove_merkle_root(leaves, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    want = HeaderRangeOutput.decode(zk.output_bytes).state_root_commitment
+    if not mp.root == sha256_merkle_root(leaves) == want:
+        raise AssertionError("prove_merkle_root: root != sha256_merkle_root")
+    t0 = time.perf_counter()
+    if not verify_merkle_root(mp, cfg, device=dev):
+        raise AssertionError("verify_merkle_root rejected the proof")
+    t_verify = time.perf_counter() - t0
+    launches = read_launches("public bind and zk_merkle")
+    if verify_merkle_root(dataclasses.replace(mp, root=bytes(32)), cfg,
+                          device=dev):
+        raise AssertionError("zk_merkle: tampered root accepted")
+    log(f"phase 11: prove_merkle_root over phase 7's {len(leaves)} state "
+        f"roots ({len(mp.node_proofs)} SHA-256 chunk proof, "
+        f"{sum(mp.chunk_sizes)} nodes): root == sha256_merkle_root == the "
+        f"output's state commitment, prove {t_prove:.3f} s, verify "
+        f"{t_verify:.3f} s; a tampered root rejected  [{card}]")
+    log(f"phase 11: kernel launches on the public-bind and zk_merkle path: "
+        f"{launches}")
+    return launches
+
+
+def phase11_child(path: str) -> dict:
+    """`chip_smoke.py --phase-11 <dir>`: phase 11 on the card, from phase
+    7's proof in `<dir>`; returns its launches and its seconds (imports
+    included) for the last line."""
+    t_start = time.perf_counter()
+    import torch
+
+    from vectorx_tpu_torch.config import Config, require_device
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.stark import StarkConfig
+
+    dev = require_device(Config())
+    card = card_line()
+    cuda_ntt.load()
+    zk = read_header_range_proof(os.path.join(path, "header_range.json"))
+    log(f"phase 11: process on {torch.cuda.get_device_name(dev)}: phase 7's "
+        f"proof read in {time.perf_counter() - t_start:.2f} s")
+    cfg = StarkConfig(fri=FriConfig())
+    agg = phase_aggregated_header_range(dev, card, zk, cfg)
+    pb = phase_public_bind(dev, card, zk, cfg, path)
+    return {"aggregated": agg, "public_bind": pb,
+            "seconds": time.perf_counter() - t_start}
+
+
+class Phase11:
+    """Phase 11 in a second process on the card (`chip_smoke.py --phase-11
+    <dir>`), started as soon as phase 7 has its proof, so that it runs
+    beside phases 8-10 (both are mostly host-bound).  Its output goes to
+    files in `<dir>`; `result` waits for it, relays its lines and raises on
+    a non-zero exit, a missing result line or a timeout."""
+
+    def __init__(self, proof, t_start: float):
+        self.started = time.perf_counter() - t_start
+        self.dir = tempfile.mkdtemp(prefix="vectorx-phase11-")
+        write_header_range_proof(proof, os.path.join(self.dir,
+                                                     "header_range.json"))
+        self.out = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase-11",
+             self.dir], stdout=self.out, stderr=self.err)
+
+    def result(self, timeout: float) -> dict:
+        t0 = time.perf_counter()
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"the phase-11 process did not end within "
+                                 f"{timeout:.0f} s")
+        finally:
+            self.out.seek(0)
+            lines = self.out.read().splitlines()
+            for line in lines[:-1]:
+                log(line)
+        if self.proc.returncode != 0:
+            self.err.seek(0)
+            sys.stderr.write(self.err.read()[-4000:])
+            raise AssertionError(f"the phase-11 process failed (exit "
+                                 f"{self.proc.returncode})")
+        try:
+            res = json.loads(lines[-1])["phase 11"]
+        except (IndexError, ValueError, KeyError):
+            raise AssertionError("the phase-11 process printed no result "
+                                 "line")
+        log(f"phase 11: the process, started {self.started:.1f} s since the "
+            f"start, ran {res['seconds']:.2f} s beside phases 8-10; waited "
+            f"{time.perf_counter() - t0:.2f} s for it")
+        return res
+
+    def finish(self, host: HostChecks, t_start: float) -> dict:
+        """Wait for this process and then for the host-check process's
+        public-bind proofs, both by `PHASE11_DEADLINE_S`; the card's
+        public-bind proof JSON must equal the CPU's.  Returns phase 11's
+        launches."""
+        def left():
+            return max(PHASE11_DEADLINE_S - (time.perf_counter() - t_start),
+                       1.0)
+
+        launches = self.result(timeout=left())
+        for name, secs in host.public_bind(timeout=left()).items():
+            with open(os.path.join(self.dir, f"public_{name}.json")) as f:
+                card_text = f.read()
+            with open(host.proof_path(name)) as f:
+                if f.read() != card_text:
+                    raise AssertionError(f"public-bind {name}: the card's "
+                                         f"proof != the CPU's")
+            log(f"phase 11: public-bind {name} proof JSON on the card == the "
+                f"CPU's from the host-check process ({len(card_text)} bytes; "
+                f"CPU prove {secs:.2f} s)")
+        return launches
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1522,17 +1969,25 @@ def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
     done(5)
     phase_ed25519(dev, card, host)
     done(6)
-    hr_launches = phase_header_range(dev, card)
-    done(7)
-    phase_identity(dev, card)
-    done(8)
-    rot_launches = phase_rotate(dev, card)
-    done(9)
-    phase_services(dev, card)
-    done(10)
+    hr_launches, hr_proof = phase_header_range(dev, card)
+    p11 = Phase11(hr_proof, t_start)
+    try:
+        done(7)
+        phase_identity(dev, card)
+        done(8)
+        rot_launches = phase_rotate(dev, card)
+        done(9)
+        phase_services(dev, card)
+        done(10)
+        p11_launches = p11.finish(host, t_start)
+    finally:
+        p11.stop()
+    done(11)
 
     for name in launches:
-        launches[name] += hr_launches[name] + rot_launches[name]
+        launches[name] += hr_launches[name] + rot_launches[name] + \
+            p11_launches["aggregated"][name] + \
+            p11_launches["public_bind"][name]
     # each kernel at the header_range path's (512, 2^17) coset LDE block,
     # the main path's largest: K1's column step, K2's transpose
     t1 = k["timed"]["K1 (512, 2^17) column step"]
@@ -1558,7 +2013,12 @@ def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--host-checks"]:
+    if sys.argv[1:2] == ["--host-checks"] and len(sys.argv) == 3:
         print(json.dumps(host_checks()), flush=True)
+        print(json.dumps(host_public_bind(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-11"] and len(sys.argv) == 3:
+        print(json.dumps({"phase 11": phase11_child(sys.argv[2])}),
+              flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -217,13 +217,21 @@ ZK_KW = dict(seed=19, num_blocks=12, epoch_length=6,
 
 
 @pytest.fixture(scope="module")
-def zk():
-    """(port chain, input, port proof, reference proof)."""
+def zk_reference():
+    """(port chain, input, reference proof); the reference's component
+    proofs load from the golden fixtures."""
     chain, jchain = _chains(**ZK_KW)
     inp = hr_input(chain, 7, 9, 1)
+    ref = jprove_zk(jchain, inp, tree_size=2, max_authorities=8, config=JCFG)
+    return chain, inp, ref
+
+
+@pytest.fixture(scope="module")
+def zk(zk_reference):
+    """(port chain, input, port proof, reference proof)."""
+    chain, inp, ref = zk_reference
     proof = prove_header_range_zk(chain, inp, tree_size=2, max_authorities=8,
                                   config=CFG, device="cpu")
-    ref = jprove_zk(jchain, inp, tree_size=2, max_authorities=8, config=JCFG)
     return chain, inp, proof, ref
 
 

@@ -18,13 +18,12 @@ extracted state/data roots, and intermediate tree digests are all public,
 so the verifier checks hash-linking, SCALE field extraction, and tree
 structure directly on public data and checks a handful of STARK proofs.
 For tree=256 this is ~4-6 proofs total, down from ~766 single-message
-proofs (full aggregation into ONE proof is the recursion ladder, not
-ported).
+proofs.  The aggregated variant (`aggregate_header_range_proof`) folds
+every component proof into ONE verifier-VM machine proof.
 
-Port of `vectorx_tpu.circuits.zk_header_range` (the component-proof
-statement): every component proof runs on the `device` the caller names,
-and the verifier derives the verification keys and runs the batched
-signature check there.
+Port of `vectorx_tpu.circuits.zk_header_range`, both variants: every
+proof runs on the `device` the caller names, and the verifiers derive the
+verification keys and run the batched signature check there.
 """
 
 from __future__ import annotations
@@ -247,3 +246,161 @@ def verify_header_range_zk(proof: ZkHeaderRangeProof, tree_size: int,
     except Exception:
         return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# Aggregated variant: ALL component STARKs folded into ONE machine proof
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ZkHeaderRangeAggProof:
+    """Like ZkHeaderRangeProof, but the component STARKs are replaced by
+    ONE verifier-VM proof (recursion/) — the single-succinct-artifact
+    shape of the reference's wrapped map-reduce proof (upstream
+    circuits/header_range.rs:71-88)."""
+
+    input_bytes: bytes
+    output_bytes: bytes
+    headers: list
+    header_hashes: list
+    header_chunk_sizes: list
+    state_levels: list
+    data_levels: list
+    sha_chunk_sizes: list
+    aggregated_proof: object     # one StarkProof over the machine trace
+    justification: object
+
+
+def _component_airs(proof, messages, digests) -> list:
+    """The child statements, in the fixed aggregation order: header-hash
+    chunks then commitment-tree chunks."""
+    airs = []
+    pos = 0
+    for sz in proof.header_chunk_sizes:
+        airs.append(Blake2bAir.statement(
+            proof.headers[pos:pos + sz],
+            proof.header_hashes[pos:pos + sz]))
+        pos += sz
+    pos = 0
+    for sz in proof.sha_chunk_sizes:
+        airs.append(Sha256Air.statement(messages[pos:pos + sz],
+                                        digests[pos:pos + sz]))
+        pos += sz
+    return airs
+
+
+def aggregate_children(proof) -> list:
+    """The aggregated statement's child AIRs, from the public fields of a
+    `ZkHeaderRangeProof` or `ZkHeaderRangeAggProof` the prover made: the
+    Blake2b header chunks, then the SHA-256 chunks over the state tree's
+    and the data tree's interior nodes."""
+    state_leaves, data_leaves = [], []
+    for enc in proof.headers:
+        d = decode_header_fields(enc, len(enc))
+        state_leaves.append(d.state_root)
+        data_leaves.append(d.data_root)
+    tree_size = len(proof.state_levels[0]) * 2 if proof.state_levels else \
+        len(state_leaves)
+    pad = tree_size - len(state_leaves)
+    state_leaves += [b"\x00" * 32] * pad
+    data_leaves += [b"\x00" * 32] * pad
+    s_msgs, s_digs, _ = _tree_messages(state_leaves, proof.state_levels)
+    d_msgs, d_digs, _ = _tree_messages(data_leaves, proof.data_levels)
+    return _component_airs(proof, s_msgs + d_msgs, s_digs + d_digs)
+
+
+def aggregate_header_range_proof(proof: ZkHeaderRangeProof,
+                                 config: StarkConfig = StarkConfig(),
+                                 outer_config: StarkConfig | None = None, *,
+                                 device) -> ZkHeaderRangeAggProof:
+    """Fold a component-proof header_range into ONE machine proof, made on
+    `device`."""
+    from vectorx_tpu_torch.recursion.aggregate import aggregate_prove
+
+    airs = aggregate_children(proof)
+    children_proofs = list(proof.header_proofs) + list(proof.sha_proofs)
+    agg = aggregate_prove(airs, children_proofs, config,
+                          outer_config=outer_config, device=device)
+    return ZkHeaderRangeAggProof(
+        input_bytes=proof.input_bytes, output_bytes=proof.output_bytes,
+        headers=proof.headers, header_hashes=proof.header_hashes,
+        header_chunk_sizes=proof.header_chunk_sizes,
+        state_levels=proof.state_levels, data_levels=proof.data_levels,
+        sha_chunk_sizes=proof.sha_chunk_sizes,
+        aggregated_proof=agg.proof, justification=proof.justification)
+
+
+def verify_header_range_zk_aggregated(
+        proof: ZkHeaderRangeAggProof, tree_size: int,
+        config: StarkConfig = StarkConfig(),
+        outer_config: StarkConfig | None = None, *,
+        device, rng=None) -> bool:
+    """Verify the aggregated header_range: the public wiring checks of
+    `verify_header_range_zk`, the justification, then exactly ONE STARK
+    verification (on `device`).
+
+    The reference checks the machine proof before the justification; here
+    the cheap public checks (wiring, then the batched signatures) come
+    first, as in `verify_header_range_zk`.  The result is the same
+    conjunction."""
+    from vectorx_tpu_torch.recursion.aggregate import aggregate_verify
+
+    inp = HeaderRangeInput.decode(proof.input_bytes)
+    out = HeaderRangeOutput.decode(proof.output_bytes)
+    n = inp.target_block - inp.trusted_block
+    if len(proof.headers) != n or len(proof.header_hashes) != n:
+        return False
+    if [s for s in proof.header_chunk_sizes if s < 1] or \
+            sum(proof.header_chunk_sizes) != n:
+        return False
+
+    # public wiring: hash-linking, decode, commitment-tree structure
+    state_leaves, data_leaves = [], []
+    prev_hash = inp.trusted_header_hash
+    for i, (enc, claimed) in enumerate(zip(proof.headers,
+                                           proof.header_hashes)):
+        try:
+            d = decode_header_fields(enc, len(enc))
+        except Exception:
+            return False
+        if d.parent_hash != prev_hash:
+            return False
+        if d.block_number != inp.trusted_block + 1 + i:
+            return False
+        prev_hash = claimed
+        state_leaves.append(d.state_root)
+        data_leaves.append(d.data_root)
+    if proof.header_hashes[-1] != out.target_header_hash:
+        return False
+    pad = tree_size - len(state_leaves)
+    state_leaves += [b"\x00" * 32] * pad
+    data_leaves += [b"\x00" * 32] * pad
+    s_wired = _tree_messages(state_leaves, proof.state_levels)
+    d_wired = _tree_messages(data_leaves, proof.data_levels)
+    if s_wired is None or d_wired is None:
+        return False
+    if s_wired[2] != out.state_root_commitment or \
+            d_wired[2] != out.data_root_commitment:
+        return False
+    messages = s_wired[0] + d_wired[0]
+    digests = s_wired[1] + d_wired[1]
+    if [s for s in proof.sha_chunk_sizes if s < 1] or \
+            sum(proof.sha_chunk_sizes) != len(messages):
+        return False
+
+    # justification on the target header (device-batched ed25519)
+    try:
+        verify_simple_justification(
+            proof.justification, inp.target_block, out.target_header_hash,
+            inp.authority_set_id, inp.authority_set_hash,
+            signature_backend="device", device=device, rng=rng)
+    except Exception:
+        return False
+
+    # ONE proof covers every component statement
+    try:
+        airs = _component_airs(proof, messages, digests)
+    except Exception:
+        return False
+    return aggregate_verify(airs, proof.aggregated_proof, config,
+                            outer_config=outer_config, device=device)

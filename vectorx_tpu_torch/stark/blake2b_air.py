@@ -1,9 +1,8 @@
 """Blake2b-256 AIR: proves digest_i = Blake2b256(message_i) for a BATCH
 of independent messages in one trace.
 
-Port of `vectorx_tpu.stark.blake2b_air` (the statement binding by constant
-columns; the public-input binding of the recursion aggregator is not
-ported).  The counterpart of the reference's curta Blake2b STARK — the
+Port of `vectorx_tpu.stark.blake2b_air`, in both of its statement bindings
+(`bind="consts"` and `bind="public"`, below).  The counterpart of the reference's curta Blake2b STARK — the
 Avail header-hash gadget (`curta_blake2b_variable`,
 upstream circuits/builder/header.rs:13-20).
 
@@ -32,7 +31,12 @@ STATEMENT BINDING: messages and claimed digests live in preprocessed
 columns (`mc*`, `dg*`, `sel_msgstart`, `sel_digest`) exactly as in
 sha256_air — the verifier derives the constants commitment from the
 statement itself, so a proof only verifies against the exact batch of
-(message, digest) pairs it was built for.
+(message, digest) pairs it was built for.  With `bind="public"` only the
+message lengths are in the constant columns: the mode gates `sel_mpin` /
+`sel_dgpin` and the `mc*` / `dg*` columns are zero, and the message limbs
+and digest limbs are public inputs pinned by boundary constraints to the
+`M*` columns at each section start and the `DG*` columns at each digest
+row.  The transition emits the same constraints in both modes.
 
 The device twin (`_transition_device`) works on stacked bit matrices —
 (1024, N) state bits, (4, 4, 64, N) intermediates, (4, 4, 4, N) carries —
@@ -106,7 +110,7 @@ def _layout():
     for g in range(4):
         for add_i in range(4):
             names += [f"C{g}_{add_i}_{i}" for i in range(4)]
-    # digest limbs as word columns
+    # digest limbs as word columns (boundary-bindable in public mode)
     for w in range(4):
         names += [f"DG{w}lo", f"DG{w}hi"]
     return {n: i for i, n in enumerate(names)}
@@ -121,8 +125,8 @@ _CONST_NAMES = (["sel_col", "sel_diag", "sel_state", "sel_hcopy",
                  # statement binding (batched statements live in the
                  # preprocessed columns — see sha256_air module docstring)
                  "sel_msgstart", "sel_digest",
-                 # mode gates (the reference zeroes them for its
-                 # public-input binding; here always = sel_init / sel_digest)
+                 # mode gates: = sel_init / sel_digest in bind="consts",
+                 # zero in bind="public" (statement moves to boundaries)
                  "sel_mpin", "sel_dgpin"]
                 + [f"mc{w}{p}" for w in range(16) for p in ("lo", "hi")]
                 + [f"dg{w}{p}" for w in range(4) for p in ("lo", "hi")]
@@ -166,14 +170,34 @@ def _np_bits(x: np.ndarray, nbits: int) -> np.ndarray:
 
 class Blake2bAir(Air):
     """Blake2b-256 (digest_size=32, no key) of a batch of messages.
-    Pass a single `bytes` or a list of them."""
+    Pass a single `bytes` or a list of them; `bind` is "consts" (default)
+    or "public", as for `Sha256Air`."""
 
-    def __init__(self, messages):
+    def __init__(self, messages, bind: str = "consts"):
+        assert bind in ("consts", "public")
+        self.bind = bind
         self.messages = _as_messages(messages)
         self._shape()
         super().__init__(width=WIDTH, log_n=self._log_n,
                          constraint_degree=4)
         self._run()
+
+    @classmethod
+    def public_shape(cls, msg_lens: list[int]) -> "Blake2bAir":
+        """Verifier-side construction for bind="public": only the message
+        lengths are statement data; the message limbs and digest limbs
+        arrive through the public inputs (zero placeholders here)."""
+        self = object.__new__(cls)
+        self.bind = "public"
+        # zero messages of the right lengths fix the shape (t counters,
+        # section counts) without fixing any content
+        self.messages = [b"\x00" * n for n in msg_lens]
+        self._shape()
+        Air.__init__(self, width=WIDTH, log_n=self._log_n,
+                     constraint_degree=4)
+        self.msg_digest_words = None
+        self._per_msg = None
+        return self
 
     def _shape(self):
         assert self.messages
@@ -278,6 +302,7 @@ class Blake2bAir(Air):
         without computing any hash.  Accepts a single message + digest or
         parallel lists."""
         self = object.__new__(cls)
+        self.bind = "consts"
         self.messages = _as_messages(messages)
         if isinstance(claimed_digests, (bytes, bytearray)):
             claimed_digests = [bytes(claimed_digests)]
@@ -295,6 +320,19 @@ class Blake2bAir(Air):
     # -- AIR interface ------------------------------------------------------
 
     def public_inputs(self):
+        if self.bind == "public":
+            # the message count, then per message 32 limbs (lo, hi) per
+            # 128-byte block and its 8 digest limbs
+            out = [len(self.messages)]
+            for mi, blocks in enumerate(self.msg_blocks):
+                for blk in blocks:
+                    out += np.frombuffer(blk, dtype="<u4").tolist()
+                if self.msg_digest_words is None:
+                    out += [0] * 8
+                    continue
+                for dw in self.msg_digest_words[mi]:
+                    out += [dw & M32, dw >> 32]
+            return out
         # the statement lives in the preprocessed columns (see the
         # sha256_air module docstring); the constants cap binds it
         return [len(self.messages)]
@@ -330,19 +368,44 @@ class Blake2bAir(Air):
                 cols[c["v12init_hi"], base] = v12 >> 32
                 cols[c["v14init_lo"], base] = v14 & M32
                 cols[c["v14init_hi"], base] = v14 >> 32
-                # statement: the section's message limbs, bound to the M
-                # witness columns at the section-start row
-                cols[c["sel_mpin"], base] = 1
-                cols[mc0:mc0 + 32, base] = np.frombuffer(blk, dtype="<u4")
+                if self.bind == "consts":
+                    # statement: the section's message limbs, bound to the
+                    # M witness columns at the section-start row
+                    cols[c["sel_mpin"], base] = 1
+                    cols[mc0:mc0 + 32, base] = np.frombuffer(blk,
+                                                             dtype="<u4")
             cols[c["sel_msgstart"], mbase] = 1
             drow = mbase + SECTION * len(blocks)
             cols[c["sel_digest"], drow] = 1
-            cols[c["sel_dgpin"], drow] = 1
-            for w in range(4):
-                dw = self.msg_digest_words[mi][w]
-                cols[c[f"dg{w}lo"], drow] = dw & M32
-                cols[c[f"dg{w}hi"], drow] = dw >> 32
+            if self.bind == "consts":
+                cols[c["sel_dgpin"], drow] = 1
+                for w in range(4):
+                    dw = self.msg_digest_words[mi][w]
+                    cols[c[f"dg{w}lo"], drow] = dw & M32
+                    cols[c[f"dg{w}hi"], drow] = dw >> 32
         return cols
+
+    def boundaries(self, public):
+        """bind="public": each section's 32 message limbs on the `M*`
+        columns at its first row, each message's 8 digest limbs on the
+        `DG*` columns at its digest row (public[0] is the message count)."""
+        if self.bind != "public":
+            return []
+        out = []
+        idx = 1
+        m_cols = [_COLS[f"M{w}{p}"] for w in range(16) for p in ("lo", "hi")]
+        dg_cols = [_COLS[f"DG{w}{p}"] for w in range(4) for p in ("lo", "hi")]
+        for mi, blocks in enumerate(self.msg_blocks):
+            mbase = self.bases[mi]
+            for si in range(len(blocks)):
+                for col in m_cols:
+                    out.append((mbase + si * SECTION, col, public[idx]))
+                    idx += 1
+            drow = mbase + SECTION * len(blocks)
+            for col in dg_cols:
+                out.append((drow, col, public[idx]))
+                idx += 1
+        return out
 
     # The transition is generated and shared by the scalar (verifier) and
     # device (prover) paths; the device path is a stacked re-emission of the

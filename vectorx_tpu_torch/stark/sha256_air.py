@@ -1,12 +1,12 @@
 """SHA-256 AIR: proves digest_i = SHA256(message_i) for a BATCH of
 independent multi-block messages in one trace.
 
-Port of `vectorx_tpu.stark.sha256_air` (the statement binding by constant
-columns; the public-input binding of the recursion aggregator is not
-ported).  The counterpart of the reference's curta SHA-256 STARK gadget
-(`curta_sha256`, upstream circuits/builder/justification.rs:140,156):
-the authority-set chained commitment and the data-root Merkle interior
-nodes are exactly chains of this hash.
+Port of `vectorx_tpu.stark.sha256_air`, in both of its statement bindings
+(`bind="consts"` and `bind="public"`, below).  The counterpart of the
+reference's curta SHA-256 STARK gadget (`curta_sha256`, upstream
+circuits/builder/justification.rs:140,156): the authority-set chained
+commitment and the data-root Merkle interior nodes are exactly chains of
+this hash.
 
 Arithmetization — one round per row, 65-row section per 64-byte block,
 plus one digest row per message:
@@ -29,7 +29,11 @@ preprocessed (constant) columns — `mword` streams w[r] under `sel_mload`,
 `dig0..dig7` hold the digest words at each message's digest row under
 `sel_digest`.  The verifier derives the constants commitment from the
 statement itself, so a proof only verifies against the exact (messages,
-digests) it was built for.
+digests) it was built for.  With `bind="public"` the constant columns carry
+only the shape (the binding selectors are zero); the message words and
+digests are public inputs, pinned by boundary constraints to `W0` over each
+section's first 16 rows and to `H0..H7` on each digest row.  The transition
+emits the same constraints in both modes.
 
 The constraints are written twice: once against the abstract algebra (the
 verifier's scalar evaluation at ζ) and once as stacked torch ops over the
@@ -138,9 +142,17 @@ def _np_bits(x: np.ndarray, nbits: int) -> np.ndarray:
 
 class Sha256Air(Air):
     """Full SHA-256 of a batch of messages (any number of 64-byte blocks
-    each).  Pass a single `bytes` or a list of them."""
+    each).  Pass a single `bytes` or a list of them.
 
-    def __init__(self, messages):
+    `bind` selects how the statement is bound: "consts" (default) puts the
+    message words and digests in the preprocessed columns, "public" makes
+    them public inputs bound by boundary constraints, so that the constant
+    columns depend on the shape alone and the recursion aggregator can
+    wire the publics to tape values."""
+
+    def __init__(self, messages, bind: str = "consts"):
+        assert bind in ("consts", "public")
+        self.bind = bind
         self.messages = _as_messages(messages)
         self._shape()
         super().__init__(width=WIDTH, log_n=self._log_n,
@@ -222,6 +234,7 @@ class Sha256Air(Air):
         re-hash, only to check the proof against this statement.  Accepts
         a single message + 32-byte digest or parallel lists."""
         self = object.__new__(cls)
+        self.bind = "consts"
         self.messages = _as_messages(messages)
         if isinstance(claimed_digests, (bytes, bytearray)):
             claimed_digests = [bytes(claimed_digests)]
@@ -236,9 +249,44 @@ class Sha256Air(Air):
         self._per_msg = None   # statement-only: no witness data
         return self
 
+    @classmethod
+    def public_shape(cls, block_counts: list[int]) -> "Sha256Air":
+        """Verifier-side construction for bind="public": only the shape
+        (blocks per message) is statement data; `public_inputs()` returns
+        zero placeholders for the message words and digests, which the
+        caller supplies (in the aggregator, by wiring tape values)."""
+        self = object.__new__(cls)
+        self.bind = "public"
+        self.messages = None
+        self.msg_blocks = [[None] * k for k in block_counts]
+        self.bases = []
+        row = 0
+        for k in block_counts:
+            self.bases.append(row)
+            row += SECTION * k + 1
+        self.total_rows = row
+        self._log_n = max(7, self.total_rows.bit_length())
+        Air.__init__(self, width=WIDTH, log_n=self._log_n,
+                     constraint_degree=4)
+        self.digests = None
+        self._per_msg = None
+        return self
+
     # -- AIR interface ------------------------------------------------------
 
     def public_inputs(self):
+        if self.bind == "public":
+            # the message count, then per message 16 words per padded
+            # block and its 8 digest words
+            out = [len(self.msg_blocks)]
+            for mi, blocks in enumerate(self.msg_blocks):
+                if self.messages is None:
+                    out += [0] * (16 * len(blocks) + 8)
+                    continue
+                for blk in blocks:
+                    out += np.frombuffer(blk, dtype=">u4").tolist()
+                out += self.digests[mi]
+            return out
         # the statement lives in the preprocessed columns; the constants
         # cap binds it into the transcript
         return [len(self.messages)]
@@ -261,16 +309,39 @@ class Sha256Air(Air):
                 cols[c["sel_secstart"], base] = 1
                 # H constant within the section (rows base..base+63)
                 cols[c["sel_hcopy"], base:base + 64] = 1
-                # message words streamed into W0 over the first 16 rows
-                cols[c["sel_mload"], base:base + 16] = 1
-                cols[c["mword"], base:base + 16] = np.frombuffer(
-                    blk, dtype=">u4")
+                if self.bind == "consts":
+                    # message words streamed into W0 over the first 16 rows
+                    cols[c["sel_mload"], base:base + 16] = 1
+                    cols[c["mword"], base:base + 16] = np.frombuffer(
+                        blk, dtype=">u4")
             cols[c["sel_msgstart"], mbase] = 1
-            drow = mbase + SECTION * len(blocks)
-            cols[c["sel_digest"], drow] = 1
-            for i in range(8):
-                cols[c[f"dig{i}"], drow] = self.digests[mi][i]
+            if self.bind == "consts":
+                drow = mbase + SECTION * len(blocks)
+                cols[c["sel_digest"], drow] = 1
+                for i in range(8):
+                    cols[c[f"dig{i}"], drow] = self.digests[mi][i]
         return cols
+
+    def boundaries(self, public):
+        """bind="public": each section's 16 message words on `W0` over its
+        first 16 rows, each message's digest on `H0..H7` at its digest row
+        (public[0] is the message count)."""
+        if self.bind != "public":
+            return []
+        out = []
+        idx = 1
+        for mi, blocks in enumerate(self.msg_blocks):
+            mbase = self.bases[mi]
+            for s in range(len(blocks)):
+                base = mbase + s * SECTION
+                for r in range(16):
+                    out.append((base + r, _COLS["W0"], public[idx]))
+                    idx += 1
+            drow = mbase + SECTION * len(blocks)
+            for i in range(8):
+                out.append((drow, _COLS[f"H{i}"], public[idx]))
+                idx += 1
+        return out
 
     def transition(self, alg, local, nxt, public, consts=None):
         if alg is DeviceAlgebra:

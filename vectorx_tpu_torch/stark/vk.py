@@ -6,6 +6,12 @@ deriving it costs a full iNTT + coset NTT + Merkle build, so it is
 memoized, keyed by a hash of the constant columns themselves and the
 commitment parameters — a hit returns exactly what re-derivation would.
 
+For `bind="public"` hash AIRs the constant columns are a function of the
+statement's shape alone (block counts, message lengths), so two statements
+of one shape share one key and one cap: the deployment's verification key.
+A `bind="consts"` statement's columns hold its messages and digests, so its
+key changes with them, as before.
+
 Token fast path: an AIR may expose `vk_token()`, a compact value that
 uniquely determines its constant columns (MachineAir returns its program's
 content-address key from `recursion.progcache`, salted with the machine
