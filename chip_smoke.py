@@ -91,8 +91,25 @@ so the script exits non-zero and prints no final line:
    root equal to `sha256_merkle_root`'s, a tampered root rejected.  The
    parent waits for the process before its summary; a non-zero exit, a
    missing result line or a timeout fails the script.
+12. in a third process on the card (`--phase-12 <dir>`), started after
+   phase 2 and run beside phases 3-11: the in-ZK GRANDPA justification of
+   the fixture chain at 20 authorities (16 signers) by
+   `prove_justification_zk` at `StarkConfig(fri=FriConfig())`: the
+   20-pubkey commitment chain, one SHA-512 chunk of the 16 challenge
+   messages (log_n 12) and one ladder chunk of the 16 signatures at
+   nbits=253 (log_n 14, 3520 columns; one of the 15 ladder chunks of the
+   deployment's 300 authorities), with its stage times, Poseidon share,
+   peak device memory and launches; `verify_justification_zk` accepts,
+   then rejects a tampered challenge digest, a forged S in the statement,
+   a `validator_signed` list under the threshold and a tampered FRI final
+   coefficient of the ladder proof.  Then the nbits=8 ladder statement of
+   `tests/test_ed25519_ladder.py` at that test's config, proved and
+   verified on the card, a forged scalar and pubkey rejected.  The
+   SHA-512 chunk's and the nbits=8 ladder's proof JSON equal the CPU's
+   proofs of the same statements.  The parent waits for the process as
+   for phase 11's.
 
-The CPU sides of phases 4, 6 and 11 run in a second process
+The CPU sides of phases 4, 6, 11 and 12 run in a second process
 (`--host-checks <dir>`), started before phase 1.  Each phase ends with a
 line of its seconds and the seconds since the start.  The last lines are
 a JSON record of the kernels, the card's name and power limit, and
@@ -1101,13 +1118,30 @@ def host_public_bind(out_dir: str) -> dict:
     return out
 
 
+def host_justification(out_dir: str) -> dict:
+    """The CPU side of phase 12: the proofs of
+    `justification_cpu_statements` on the CPU, their JSON written to
+    `out_dir`; the seconds of each."""
+    from vectorx_tpu_torch.stark import prove
+
+    out = {}
+    for name, air, cfg in justification_cpu_statements():
+        t0 = time.perf_counter()
+        text = proof_text(prove(air, air.build_trace(), cfg, device="cpu"))
+        with open(os.path.join(out_dir, f"justification_{name}.json"),
+                  "w") as f:
+            f.write(text)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
 class HostChecks:
-    """`host_checks`, then `host_public_bind`, in a second process
-    (`chip_smoke.py --host-checks <dir>`), started before phase 1 so that
-    the host proves while the card runs the other phases.  It prints one
-    JSON line for each; the public-bind proofs go to files in `<dir>`.
-    Its caches live in a directory of their own, so it derives every key
-    and program itself."""
+    """`host_checks`, `host_public_bind`, then `host_justification`, in a
+    second process (`chip_smoke.py --host-checks <dir>`), started before
+    phase 1 so that the host proves while the card runs the other phases.
+    It prints one JSON line for each; the public-bind and justification
+    proofs go to files in `<dir>`.  Its caches live in a directory of
+    their own, so it derives every key and program itself."""
 
     def __init__(self):
         self.tmp = tempfile.mkdtemp(prefix="vectorx-host-checks-")
@@ -1117,6 +1151,7 @@ class HostChecks:
             env=dict(os.environ,
                      VECTORX_VK_CACHE=os.path.join(self.tmp, "vk")))
         self._result = None
+        self._rest_lines = None
 
     def result(self) -> dict:
         """The first line: phases 4 and 6."""
@@ -1132,25 +1167,38 @@ class HostChecks:
                 f"the host-check process's first line")
         return self._result
 
-    def public_bind(self, timeout: float) -> dict:
-        """The second line, after the process ended: the seconds of each
-        public-bind proof, whose JSON is in `proof_path(name)`."""
-        self.result()
-        t0 = time.perf_counter()
-        try:
-            out, _ = self.proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            raise AssertionError(f"the host-check process did not end "
-                                 f"within {timeout:.0f} s")
-        if self.proc.returncode != 0 or not out.strip():
-            raise AssertionError(f"the host-check process failed (exit "
-                                 f"{self.proc.returncode})")
-        log(f"host checks: waited {time.perf_counter() - t0:.2f} s for the "
-            f"host-check process's public-bind proofs")
-        return json.loads(out.strip().splitlines()[-1])
+    def _rest(self, timeout: float) -> list:
+        """The lines after the first, once the process has ended."""
+        if self._rest_lines is None:
+            self.result()
+            t0 = time.perf_counter()
+            try:
+                out, _ = self.proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"the host-check process did not end "
+                                     f"within {timeout:.0f} s")
+            lines = out.strip().splitlines()
+            if self.proc.returncode != 0 or len(lines) != 2:
+                raise AssertionError(f"the host-check process failed (exit "
+                                     f"{self.proc.returncode})")
+            log(f"host checks: waited {time.perf_counter() - t0:.2f} s for "
+                f"the host-check process's public-bind and justification "
+                f"proofs")
+            self._rest_lines = [json.loads(line) for line in lines]
+        return self._rest_lines
 
-    def proof_path(self, name: str) -> str:
-        return os.path.join(self.tmp, f"public_{name}.json")
+    def public_bind(self, timeout: float) -> dict:
+        """The seconds of each public-bind proof, whose JSON is in
+        `proof_path("public", name)`."""
+        return self._rest(timeout)[0]
+
+    def justification(self, timeout: float) -> dict:
+        """The seconds of each of phase 12's CPU proofs, whose JSON is in
+        `proof_path("justification", name)`."""
+        return self._rest(timeout)[1]
+
+    def proof_path(self, kind: str, name: str) -> str:
+        return os.path.join(self.tmp, f"{kind}_{name}.json")
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -1801,33 +1849,36 @@ def phase11_child(path: str) -> dict:
             "seconds": time.perf_counter() - t_start}
 
 
-class Phase11:
-    """Phase 11 in a second process on the card (`chip_smoke.py --phase-11
-    <dir>`), started as soon as phase 7 has its proof, so that it runs
-    beside phases 8-10 (both are mostly host-bound).  Its output goes to
-    files in `<dir>`; `result` waits for it, relays its lines and raises on
-    a non-zero exit, a missing result line or a timeout."""
+class CardPhase:
+    """Phase `phase` in a process of its own on the card (`chip_smoke.py
+    --phase-<phase> <dir>`), run beside the parent's phases (both are
+    mostly host-bound).  Its output goes to files in `<dir>`; `result`
+    waits for it, relays its lines and raises on a non-zero exit, a
+    missing result line or a timeout."""
 
-    def __init__(self, proof, t_start: float):
+    def __init__(self, phase: int, t_start: float, beside: str):
+        self.phase, self.beside = phase, beside
         self.started = time.perf_counter() - t_start
-        self.dir = tempfile.mkdtemp(prefix="vectorx-phase11-")
-        write_header_range_proof(proof, os.path.join(self.dir,
-                                                     "header_range.json"))
+        self.dir = tempfile.mkdtemp(prefix=f"vectorx-phase{phase}-")
+        self.prepare()
         self.out = open(os.path.join(self.dir, "stdout"), "w+")
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase-11",
+            [sys.executable, os.path.abspath(__file__), f"--phase-{phase}",
              self.dir], stdout=self.out, stderr=self.err)
+
+    def prepare(self) -> None:
+        """Files the process reads from its directory."""
 
     def result(self, timeout: float) -> dict:
         t0 = time.perf_counter()
+        what = f"the phase-{self.phase} process"
         try:
             self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait()
-            raise AssertionError(f"the phase-11 process did not end within "
-                                 f"{timeout:.0f} s")
+            raise AssertionError(f"{what} did not end within {timeout:.0f} s")
         finally:
             self.out.seek(0)
             lines = self.out.read().splitlines()
@@ -1836,39 +1887,16 @@ class Phase11:
         if self.proc.returncode != 0:
             self.err.seek(0)
             sys.stderr.write(self.err.read()[-4000:])
-            raise AssertionError(f"the phase-11 process failed (exit "
+            raise AssertionError(f"{what} failed (exit "
                                  f"{self.proc.returncode})")
         try:
-            res = json.loads(lines[-1])["phase 11"]
+            res = json.loads(lines[-1])[f"phase {self.phase}"]
         except (IndexError, ValueError, KeyError):
-            raise AssertionError("the phase-11 process printed no result "
-                                 "line")
-        log(f"phase 11: the process, started {self.started:.1f} s since the "
-            f"start, ran {res['seconds']:.2f} s beside phases 8-10; waited "
-            f"{time.perf_counter() - t0:.2f} s for it")
+            raise AssertionError(f"{what} printed no result line")
+        log(f"phase {self.phase}: the process, started {self.started:.1f} s "
+            f"since the start, ran {res['seconds']:.2f} s beside "
+            f"{self.beside}; waited {time.perf_counter() - t0:.2f} s for it")
         return res
-
-    def finish(self, host: HostChecks, t_start: float) -> dict:
-        """Wait for this process and then for the host-check process's
-        public-bind proofs, both by `PHASE11_DEADLINE_S`; the card's
-        public-bind proof JSON must equal the CPU's.  Returns phase 11's
-        launches."""
-        def left():
-            return max(PHASE11_DEADLINE_S - (time.perf_counter() - t_start),
-                       1.0)
-
-        launches = self.result(timeout=left())
-        for name, secs in host.public_bind(timeout=left()).items():
-            with open(os.path.join(self.dir, f"public_{name}.json")) as f:
-                card_text = f.read()
-            with open(host.proof_path(name)) as f:
-                if f.read() != card_text:
-                    raise AssertionError(f"public-bind {name}: the card's "
-                                         f"proof != the CPU's")
-            log(f"phase 11: public-bind {name} proof JSON on the card == the "
-                f"CPU's from the host-check process ({len(card_text)} bytes; "
-                f"CPU prove {secs:.2f} s)")
-        return launches
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -1877,6 +1905,310 @@ class Phase11:
         self.out.close()
         self.err.close()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _time_left(t_start: float) -> float:
+    """Seconds left until `PHASE11_DEADLINE_S`, at least one."""
+    return max(PHASE11_DEADLINE_S - (time.perf_counter() - t_start), 1.0)
+
+
+class Phase11(CardPhase):
+    """Phase 11, started as soon as phase 7 has its proof, beside phases
+    8-10."""
+
+    def __init__(self, proof, t_start: float):
+        self.proof = proof
+        super().__init__(11, t_start, "phases 8-10")
+
+    def prepare(self) -> None:
+        write_header_range_proof(self.proof, os.path.join(
+            self.dir, "header_range.json"))
+
+    def finish(self, host: HostChecks, t_start: float) -> dict:
+        """Wait for this process and then for the host-check process's
+        public-bind proofs, both by `PHASE11_DEADLINE_S`; the card's
+        public-bind proof JSON must equal the CPU's.  Returns phase 11's
+        launches."""
+        launches = self.result(timeout=_time_left(t_start))
+        for name, secs in host.public_bind(
+                timeout=_time_left(t_start)).items():
+            with open(os.path.join(self.dir, f"public_{name}.json")) as f:
+                card_text = f.read()
+            with open(host.proof_path("public", name)) as f:
+                if f.read() != card_text:
+                    raise AssertionError(f"public-bind {name}: the card's "
+                                         f"proof != the CPU's")
+            log(f"phase 11: public-bind {name} proof JSON on the card == the "
+                f"CPU's from the host-check process ({len(card_text)} bytes; "
+                f"CPU prove {secs:.2f} s)")
+        return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the in-ZK GRANDPA justification, in a third process on the card
+# ---------------------------------------------------------------------------
+
+# The fixture chain's authorities per era: 16 of 20 sign, one full ladder
+# chunk (the deployment's 300 authorities, 240 signers, take 15)
+JUSTIFICATION_AUTHORITIES = 20
+# (AIR, log_n, width, streamed) of the statement's component proofs at
+# FriConfig(), as their shapes give them on the CPU: the 20-step SHA-256
+# commitment chain, the SHA-512 chunk of 16 challenge messages (2 blocks
+# each), the ladder chunk of 16 signatures (its 5763 committed columns x
+# 2^17 points pass the 2^29 streaming bound)
+JUSTIFICATION_CHILDREN = [("Sha256Air", 12, 299, False),
+                          ("Sha512Air", 12, 598, False),
+                          ("Ed25519LadderAir", 14, 3520, True)]
+
+
+def justification_statement():
+    """(JustificationData, authority set hash) of the fixture chain at
+    `JUSTIFICATION_AUTHORITIES` authorities (block 3)."""
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.fixtures import FixtureChain
+
+    chain = FixtureChain(seed=23, num_blocks=8, epoch_length=4,
+                         authorities_per_era=lambda e:
+                         JUSTIFICATION_AUTHORITIES)
+    j = chain.get_justification(3)
+    return j, chained_hash(chain.era_pubkeys(j.authority_set_id))
+
+
+def toy_ladder_signature():
+    """`tests/test_ed25519_ladder.py::make_instance()`: [173]B = R + [89]A
+    with A = [12345]B."""
+    from vectorx_tpu_torch.curves import ed25519 as ed
+
+    a_pt = ed.scalar_mult(12345, ed.B_POINT)
+    ha = ed.scalar_mult(89, a_pt)
+    neg_ha = ((ed.Q - ha[0]) % ed.Q, ha[1], ha[2], (ed.Q - ha[3]) % ed.Q)
+    r_pt = ed.point_add(ed.scalar_mult(173, ed.B_POINT), neg_ha)
+    return (ed.point_compress(a_pt), ed.point_compress(r_pt), 173, 89)
+
+
+def justification_cpu_statements():
+    """(name, AIR, config) of the proofs phase 12 holds against the CPU's:
+    the statement's SHA-512 chunk at FriConfig(), and the nbits=8 ladder of
+    `tests/test_ed25519_ladder.py` at that test's config.  A 253-bit ladder
+    of one signature (log_n 10) has twice its LDE points, so twice its CPU
+    Poseidon (minutes already at nbits=8), which the host-check process
+    has no time for beside its other proofs."""
+    from vectorx_tpu_torch.circuits import zk_justification as zkj
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.stark import StarkConfig
+    from vectorx_tpu_torch.stark.ed25519_ladder_air import Ed25519LadderAir
+    from vectorx_tpu_torch.stark.sha512_air import Sha512Air
+
+    j, _ = justification_statement()
+    msgs = zkj.challenge_messages(j.pubkeys, j.signatures, j.signed_message,
+                                  zkj._enabled_indices(j))
+    return [("sha512_chunk", Sha512Air(msgs), StarkConfig(fri=FriConfig())),
+            ("ladder_nbits8", Ed25519LadderAir([toy_ladder_signature()],
+                                               nbits=8), small_config(0))]
+
+
+def phase_justification(dev, card: str, cfg, out_dir: str) -> dict:
+    """`prove_justification_zk` of `justification_statement` on the card,
+    stage-timed, each component proof timed with its Poseidon seconds;
+    `verify_justification_zk` accepts it, then rejects a tampered
+    challenge digest, a forged S, a `validator_signed` list under the
+    threshold and a tampered FRI final coefficient of the ladder proof.
+    The SHA-512 chunk's proof JSON goes to `out_dir`.  Returns the
+    launches of the prove and its verify."""
+    import torch
+
+    from vectorx_tpu_torch.circuits import zk_commitment
+    from vectorx_tpu_torch.circuits import zk_justification as zkj
+    from vectorx_tpu_torch.curves.ed25519 import L
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.stark import prover, stages
+    from vectorx_tpu_torch.stark.ed25519_ladder_air import Ed25519LadderAir
+    from vectorx_tpu_torch.stark.serialize import (proof_from_json,
+                                                   proof_to_json)
+    from vectorx_tpu_torch.stark.sha512_air import Sha512Air
+
+    j, set_hash = justification_statement()
+    log(f"phase 12: in-ZK justification of the fixture chain at "
+        f"{j.num_authorities} authorities ({sum(j.validator_signed)} "
+        f"signers, block {j.block_number}), FriConfig()")
+    timer = StageTimer(extra=[
+        (Sha512Air, "build_trace"), (Ed25519LadderAir, "build_trace"),
+        (prover, "prove_streamed"), (stages, "commit_streamed"),
+        (stages, "coset_eval_rows"), (stages, "deep_compose_coset")])
+    children = []
+
+    def timed(orig):
+        def prove(air, trace, config, *, device):
+            p0 = timer.times.get("permute", 0.0)
+            t0 = time.perf_counter()
+            out = orig(air, trace, config, device=device)
+            torch.cuda.synchronize()
+            children.append((type(air).__name__, air.log_n, air.width,
+                             prover._use_streaming(air, config),
+                             time.perf_counter() - t0,
+                             timer.times.get("permute", 0.0) - p0))
+            return out
+        return prove
+
+    saved = [(zkj, zkj.prove), (zk_commitment, zk_commitment.prove)]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod, orig in saved:
+        mod.prove = timed(orig)
+    t0 = time.perf_counter()
+    try:
+        with timer:
+            zk = zkj.prove_justification_zk(j, set_hash, cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        for mod, orig in saved:
+            mod.prove = orig
+    t_prove = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    permute = timer.times.get("permute", 0.0)
+    log(f"phase 12: prove_justification_zk: {t_prove:.3f} s (Poseidon "
+        f"permute {permute:.3f} s, {permute / t_prove * 100:.1f} %), peak "
+        f"device memory {peak / 2**30:.3f} GiB; chunks: SHA-512 "
+        f"{zk.sha_chunk_sizes}, ladder {zk.ladder_chunk_sizes}  [{card}]")
+    for name, log_n, width, streamed, secs, perm in children:
+        log(f"phase 12:   {name} (log_n {log_n}, {width} columns, "
+            f"{'streamed' if streamed else 'not streamed'}): prove "
+            f"{secs:.3f} s, Poseidon {perm:.3f} s  [{card}]")
+    log(f"phase 12: stage seconds (stages overlap: NTT and Poseidon run "
+        f"inside them): {timer.summary()}  [{card}]")
+    shapes = [c[:4] for c in children]
+    signed = [sum(j.validator_signed)]
+    if shapes != JUSTIFICATION_CHILDREN or zk.sha_chunk_sizes != signed \
+            or zk.ladder_chunk_sizes != signed:
+        raise AssertionError(f"justification children {shapes}, chunks "
+                             f"{zk.sha_chunk_sizes} / {zk.ladder_chunk_sizes}")
+    with open(os.path.join(out_dir, "justification_sha512_chunk.json"),
+              "w") as f:
+        f.write(proof_text(zk.sha_proofs[0]))
+
+    def verify(p):
+        return zkj.verify_justification_zk(
+            p, j.block_number, j.block_hash, j.authority_set_id, set_hash,
+            cfg, device=dev)
+
+    # accept first: the verifier turns any exception into a rejection, so
+    # a rejection counts only after the same verifier accepted
+    t0 = time.perf_counter()
+    if not verify(zk):
+        raise AssertionError("verify_justification_zk rejected the proof")
+    t_ver = time.perf_counter() - t0
+    launches = read_launches("justification")
+    log(f"phase 12: verify_justification_zk accepted in {t_ver:.3f} s; "
+        f"kernel launches on the justification path (prove and verify): "
+        f"{launches}  [{card}]")
+    first = zkj._enabled_indices(j)[0]
+    s_int = int.from_bytes(zk.signatures[first][32:], "little")
+    s_bad = s_int ^ 1 if s_int ^ 1 < L else s_int - 1
+    sigs = list(zk.signatures)
+    sigs[first] = sigs[first][:32] + s_bad.to_bytes(32, "little")
+    n = zk.num_authorities
+    under = [i < (2 * n) // 3 for i in range(len(zk.validator_signed))]
+    lp = proof_from_json(proof_to_json(zk.ladder_proofs[0]))
+    c0, c1 = lp.fri_proof.final_coeffs[0]
+    lp.fri_proof.final_coeffs[0] = ((c0 + 1) % gl.P, c1)
+    for what, bad in (
+            ("a tampered challenge digest", dataclasses.replace(
+                zk, challenge_digests=[b"\xff" * 64]
+                + zk.challenge_digests[1:])),
+            ("a forged S in the statement", dataclasses.replace(
+                zk, signatures=sigs)),
+            (f"validator_signed with {sum(under)} of {n}", dataclasses.replace(
+                zk, validator_signed=under)),
+            ("a tampered FRI final coefficient of the ladder proof",
+             dataclasses.replace(zk, ladder_proofs=[lp]))):
+        t0 = time.perf_counter()
+        if verify(bad):
+            raise AssertionError(f"verify_justification_zk accepted {what}")
+        log(f"phase 12: {what} rejected ({time.perf_counter() - t0:.3f} s)")
+    return launches
+
+
+def phase_ladder_identity(dev, card: str, out_dir: str) -> None:
+    """The nbits=8 ladder of `justification_cpu_statements` proved and
+    verified on the card, a forged scalar and pubkey rejected; its proof
+    JSON goes to `out_dir`."""
+    import torch
+
+    from vectorx_tpu_torch.curves import ed25519 as ed
+    from vectorx_tpu_torch.stark import prove, verify
+    from vectorx_tpu_torch.stark.ed25519_ladder_air import Ed25519LadderAir
+
+    _, air, cfg = justification_cpu_statements()[1]
+    sig = air.sigs[0]
+    t0 = time.perf_counter()
+    proof = prove(air, air.build_trace(), cfg, device=dev)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not verify(Ed25519LadderAir.statement([sig], nbits=8), proof, cfg,
+                  device=dev):
+        raise AssertionError("ladder nbits=8: verify rejected the proof")
+    t_ver = time.perf_counter() - t0
+    other = ed.point_compress(ed.scalar_mult(999, ed.B_POINT))
+    for what, forged in (("scalar", (sig[0], sig[1], sig[2] ^ 1, sig[3])),
+                         ("pubkey", (other, *sig[1:]))):
+        if verify(Ed25519LadderAir.statement([forged], nbits=8), proof, cfg,
+                  device=dev):
+            raise AssertionError(f"ladder nbits=8: forged {what} accepted")
+    with open(os.path.join(out_dir, "justification_ladder_nbits8.json"),
+              "w") as f:
+        f.write(proof_text(proof))
+    log(f"phase 12: ladder nbits=8 (tests/test_ed25519_ladder.py, log_n "
+        f"{air.log_n}, its config): prove {t_prove:.3f} s, verify "
+        f"{t_ver:.3f} s; a forged scalar and pubkey rejected  [{card}]")
+
+
+def phase12_child(path: str) -> dict:
+    """`chip_smoke.py --phase-12 <dir>`: phase 12 on the card; returns its
+    launches and its seconds (imports included) for the last line."""
+    t_start = time.perf_counter()
+    import torch
+
+    from vectorx_tpu_torch.config import Config, require_device
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.stark import StarkConfig
+
+    dev = require_device(Config())
+    card = card_line()
+    cuda_ntt.load()
+    log(f"phase 12: process on {torch.cuda.get_device_name(dev)}")
+    launches = phase_justification(dev, card, StarkConfig(fri=FriConfig()),
+                                   path)
+    phase_ladder_identity(dev, card, path)
+    return {"justification": launches,
+            "seconds": time.perf_counter() - t_start}
+
+
+class Phase12(CardPhase):
+    """Phase 12, started after phase 2, beside phases 3-11."""
+
+    def __init__(self, t_start: float):
+        super().__init__(12, t_start, "phases 3-11")
+
+    def finish(self, host: HostChecks, t_start: float) -> dict:
+        """Wait for this process and then for the host-check process's
+        justification proofs, both by `PHASE11_DEADLINE_S`; the card's
+        proof JSON must equal the CPU's.  Returns phase 12's launches."""
+        launches = self.result(timeout=_time_left(t_start))
+        for name, secs in host.justification(
+                timeout=_time_left(t_start)).items():
+            with open(os.path.join(self.dir,
+                                   f"justification_{name}.json")) as f:
+                card_text = f.read()
+            with open(host.proof_path("justification", name)) as f:
+                if f.read() != card_text:
+                    raise AssertionError(f"justification {name}: the card's "
+                                         f"proof != the CPU's")
+            log(f"phase 12: {name} proof JSON on the card == the CPU's from "
+                f"the host-check process ({len(card_text)} bytes; CPU prove "
+                f"{secs:.2f} s)")
+        return launches
 
 
 def main() -> int:
@@ -1947,47 +2279,56 @@ def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
     phase_poseidon(dev, card)
     done(2)
 
-    # the prover path of the first slice, three steps shallower than there
-    # (2^21 / 2^20 rows) so that the whole script fits its time limit
-    cfg = StarkConfig(fri=FriConfig())
-    rng = np.random.default_rng(0)
-    values = rng.integers(0, 1 << 16, size=(8, (1 << 17) - 1),
-                          dtype=np.uint64)
-    statements = [("FibonacciAir(log_n=18)", FibonacciAir(log_n=18)),
-                  ("RangeCheckAir(log_n=17, bits=16, V=8)",
-                   RangeCheckAir(17, 16, values))]
-    reset_launches()
-    for name, air in statements:
-        prove_and_check(name, air, cfg, dev, card)
-    launches = read_launches("STARK prover")
-    log(f"phase 3: kernel launches on the STARK prover path: {launches}")
-    done(3)
-
-    phase_cuda_cpu(dev, card, host)
-    done(4)
-    phase_hashes(dev, card)
-    done(5)
-    phase_ed25519(dev, card, host)
-    done(6)
-    hr_launches, hr_proof = phase_header_range(dev, card)
-    p11 = Phase11(hr_proof, t_start)
+    # phase 12 runs in its own process on the card from here on, after
+    # phase 1's kernel medians
+    p12 = Phase12(t_start)
     try:
-        done(7)
-        phase_identity(dev, card)
-        done(8)
-        rot_launches = phase_rotate(dev, card)
-        done(9)
-        phase_services(dev, card)
-        done(10)
-        p11_launches = p11.finish(host, t_start)
+        # the prover path of the first slice, three steps shallower than
+        # there (2^21 / 2^20 rows) so that the whole script fits its limit
+        cfg = StarkConfig(fri=FriConfig())
+        rng = np.random.default_rng(0)
+        values = rng.integers(0, 1 << 16, size=(8, (1 << 17) - 1),
+                              dtype=np.uint64)
+        statements = [("FibonacciAir(log_n=18)", FibonacciAir(log_n=18)),
+                      ("RangeCheckAir(log_n=17, bits=16, V=8)",
+                       RangeCheckAir(17, 16, values))]
+        reset_launches()
+        for name, air in statements:
+            prove_and_check(name, air, cfg, dev, card)
+        launches = read_launches("STARK prover")
+        log(f"phase 3: kernel launches on the STARK prover path: {launches}")
+        done(3)
+
+        phase_cuda_cpu(dev, card, host)
+        done(4)
+        phase_hashes(dev, card)
+        done(5)
+        phase_ed25519(dev, card, host)
+        done(6)
+        hr_launches, hr_proof = phase_header_range(dev, card)
+        p11 = Phase11(hr_proof, t_start)
+        try:
+            done(7)
+            phase_identity(dev, card)
+            done(8)
+            rot_launches = phase_rotate(dev, card)
+            done(9)
+            phase_services(dev, card)
+            done(10)
+            p11_launches = p11.finish(host, t_start)
+        finally:
+            p11.stop()
+        done(11)
+        p12_launches = p12.finish(host, t_start)
     finally:
-        p11.stop()
-    done(11)
+        p12.stop()
+    done(12)
 
     for name in launches:
         launches[name] += hr_launches[name] + rot_launches[name] + \
             p11_launches["aggregated"][name] + \
-            p11_launches["public_bind"][name]
+            p11_launches["public_bind"][name] + \
+            p12_launches["justification"][name]
     # each kernel at the header_range path's (512, 2^17) coset LDE block,
     # the main path's largest: K1's column step, K2's transpose
     t1 = k["timed"]["K1 (512, 2^17) column step"]
@@ -2016,9 +2357,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--host-checks"] and len(sys.argv) == 3:
         print(json.dumps(host_checks()), flush=True)
         print(json.dumps(host_public_bind(sys.argv[2])), flush=True)
+        print(json.dumps(host_justification(sys.argv[2])), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--phase-11"] and len(sys.argv) == 3:
         print(json.dumps({"phase 11": phase11_child(sys.argv[2])}),
+              flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-12"] and len(sys.argv) == 3:
+        print(json.dumps({"phase 12": phase12_child(sys.argv[2])}),
               flush=True)
         sys.exit(0)
     sys.exit(main())

@@ -9,7 +9,8 @@ so a proof's JSON equals the reference's for the same statement and config.
 Two schedules give bit-identical proofs: `prove` keeps every committed LDE
 on the device; past `STREAM_THRESHOLD_ELEMS` it hands the statement to
 `prove_streamed`, which evaluates every full-domain stage one
-stride-`blowup` coset at a time and keeps its trees on the host.
+stride-`blowup` coset at a time (leaf hashing: a block of rows at a time)
+and keeps its trees on the host.
 """
 
 from __future__ import annotations
@@ -583,13 +584,14 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     LDEs never standing on the device.
 
     The LDE domain splits into `blowup` stride-`blowup` cosets: index
-    j = blowup·t + c is the point g·w_N^c·w_n^t.  Every full-domain stage
-    (leaf hashing, constraint composition, DEEP) runs one coset at a time
-    as a size-n transform of the coefficient rows, where "the next trace
-    row" is the next point of the same coset.  Only single (N,) codewords
-    (composition, DEEP) are built at full size; commitments and FRI layers
-    go to the host (`stages.HostTree`), and the queried leaves are
-    recomputed from their cosets."""
+    j = blowup·t + c is the point g·w_N^c·w_n^t.  The constraint
+    composition and DEEP run one coset at a time as a size-n transform of
+    the coefficient rows, where "the next trace row" is the next point of
+    the same coset; leaf hashing runs a block of rows at a time over the
+    whole domain (`stages.commit_streamed`).  Only single (N,) codewords
+    (composition, DEEP) and the (N, 12) leaf sponges are built at full
+    size; commitments and FRI layers go to the host (`stages.HostTree`),
+    and the queried leaves are recomputed from their cosets."""
     n = air.n
     W = air.width
     assert trace_u64.shape == (W, n)

@@ -3,8 +3,8 @@
 Port of `vectorx_tpu.stark.stages`:
 
     commit        : iNTT -> coset-LDE -> leaf hash -> Merkle layers
-    streamed      : the same commitment one stride-`blowup` coset at a time,
-                    its digest layers kept on the host (`HostTree`)
+    streamed      : the same commitment a block of rows at a time, its
+                    digest layers kept on the host (`HostTree`)
     quotient      : Z_H division -> coset iNTT -> chunk split
     DEEP eval     : every coefficient group at ζ and w·ζ
     DEEP compose  : the batched opening codeword L(x)
@@ -178,22 +178,39 @@ def coset_eval_rows(c: torch.Tensor, shift: int) -> torch.Tensor:
     return rows_chunked(lambda a: coset_ntt(a, shift), c, c.shape[-1])
 
 
-def hash_rows_leaves(e: torch.Tensor) -> torch.Tensor:
-    """Leaf digests (n, 4) of evaluation rows (R, n): columns are leaves."""
-    return merkle.hash_leaves(e.T)
+def _absorb(state: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """One overwrite-mode sponge step of `poseidon.hash_no_pad` for every
+    leaf at once: (N, 12) states, (N, k ≤ 8) lanes."""
+    return merkle._rows_blocked(
+        lambda s, x: poseidon.permute(torch.cat([x, s[:, x.shape[1]:]], 1)),
+        state, rows)
 
 
 def commit_streamed(c: torch.Tensor, log_N: int, cap_height: int):
-    """Merkle tree over the LDE leaves of coefficient rows (R, n), one
-    stride-`blowup` coset at a time: hash each coset's n leaves, interleave
-    the digests (leaf j = blowup·t + c is coset c's position t), build the
-    layers, and keep them on the host (`HostTree`).  Equal to the tree of
-    `commit_rows` over the same rows."""
-    n = c.shape[-1]
-    blowup = (1 << log_N) // n
-    digs = torch.stack([hash_rows_leaves(coset_eval_rows(
-        c, coset_shift(k, log_N))) for k in range(blowup)], dim=1)
-    layers = merkle.layers_from_digests(digs.reshape(-1, 4), cap_height)
+    """Merkle tree over the LDE leaves of coefficient rows (R, n), a block
+    of rows at a time: each block's LDE (rows, N) is absorbed into the N
+    leaf sponges (8 rows per permutation, as `hash_no_pad` absorbs a
+    leaf), so only the (N, 12) sponge states and one block stand on the
+    device; the layers are kept on the host (`HostTree`).  Equal to the
+    tree of `commit_rows` over the same rows, with its number of Poseidon
+    calls: a wide statement is not hashed once per coset."""
+    R = c.shape[0]
+    N = 1 << log_N
+    if R <= poseidon.DIGEST:
+        digs = merkle.hash_leaves(coset_lde_rows(c, N).T)
+    else:
+        step = max(poseidon.RATE,
+                   LDE_CHUNK_ELEMS // N // poseidon.RATE * poseidon.RATE)
+        st = torch.zeros((N, poseidon.WIDTH), dtype=torch.int64,
+                         device=c.device)
+        for r0 in range(0, R, step):
+            e = coset_lde_rows(c[r0:r0 + step], N)
+            for a in range(0, e.shape[0], poseidon.RATE):
+                st = _absorb(st, e[a:a + poseidon.RATE].T)
+            del e
+        digs = st[:, :poseidon.DIGEST]
+        del st
+    layers = merkle.layers_from_digests(digs, cap_height)
     del digs
     return HostTree.from_device(DeviceTree(layers, cap_height))
 
