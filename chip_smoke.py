@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`vectorx_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # phases 0-12
+    python3 chip_smoke.py --succinct    # phases 0-2, 13 and 14
 
 Phases, each printed with its result and timing; any failed check raises,
 so the script exits non-zero and prints no final line:
@@ -26,8 +27,8 @@ so the script exits non-zero and prints no final line:
    dense matvecs as float64 limb matmuls equal to the field-op products
    on 2^20 random states, each timed, and a whole permutation timed.
 3. the STARK prover path at the production FRI config (`FriConfig()`:
-   rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=18) and
-   RangeCheckAir(log_n=17, bits=16, V=8), each proved on CUDA with
+   rate 3, 28 queries, 16 pow bits): FibonacciAir(log_n=16) and
+   RangeCheckAir(log_n=15, bits=14, V=8), each proved on CUDA with
    per-stage timers, verified, and rejected after tampering; every kernel
    must have launched.
 4. CUDA against CPU proofs at log_n=8: identical proof JSON for
@@ -109,16 +110,49 @@ so the script exits non-zero and prints no final line:
    proofs of the same statements.  The parent waits for the process as
    for phase 11's.
 
-The CPU sides of phases 4, 6, 11 and 12 run in a second process
-(`--host-checks <dir>`), started before phase 1.  Each phase ends with a
-line of its seconds and the seconds since the start.  The last lines are
-a JSON record of the kernels, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.
+With `--succinct` the script runs phases 0-2 and then, instead of phases
+3-12, the succinct product pipeline (each statement takes longer on the
+card than phases 3-12 together, so the two do not fit one 1200 s run):
+
+13. in a process of its own on the card (`--phase-13 <dir>`, its caches in
+   `<dir>`), started after phase 2: the succinct header_range (one
+   machine proof) of phase 7's header mix at tree 2 and 4 authorities, at
+   `StarkConfig(fri=FriConfig())`, through the port's contract and
+   `make_gateway(zk="succinct")`: `request_header_range`, then
+   `fulfill_next`, which proves once and
+   verifies once on the card; the contract stores the dummy's header hash
+   and commitments.  The prove's stage seconds (each child proof, the
+   tape, `compile_tape`, the machine's trace and constant columns, the
+   machine proof with its Poseidon share and whether it streamed), peak
+   device memory and launches; then `verify_header_range_succinct` from a
+   cold program and key cache accepts, and only then a tampered output
+   through the gateway reverts the commit and a `validator_signed` list
+   under the threshold and a tampered FRI final coefficient of the machine
+   proof are rejected.
+14. in another process on the card (`--phase-14 <dir>`), beside phase 13:
+   the succinct rotate of the same chain's set 1 through
+   `request_rotate` and `fulfill_next` on a `make_gateway(zk="succinct")`
+   (the stored next-set hash equals `DummyRotate`'s), with the same stage
+   seconds, peak memory and launches; the gateway's warm verify accepts,
+   then a proof whose output carries another new-set hash (its statement
+   program derived anew) and a tampered FRI final coefficient are
+   rejected.
+   Each rejection must come from the check it names: the STARK verify
+   returning False, or the host bookkeeping before it; a verifier that
+   rejects because something under it raised fails the phase.
+
+The CPU sides of phases 4, 6 and 11 run in a second process
+(`--host-checks <dir>`) and phase 12's in a third, at a lower priority
+(`--host-justification <dir>`), both started before phase 1.  Each phase ends with a
+line of its seconds and when it started and ended since the start.  The
+last lines are a JSON record of the kernels, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -722,15 +756,15 @@ def phase_ed25519(dev, card: str, host: "HostChecks") -> None:
 HR_TREE, HR_AUTH = 16, 300
 
 
-def header_range_chain():
-    """Phase 7's fixture chain and its blocks (trusted, target]."""
+def header_range_chain(tree: int = HR_TREE, auth: int = HR_AUTH):
+    """Phase 7's fixture chain and its blocks (trusted, target] (phases 13
+    and 14: the same header mix at tree 2 and 4 authorities)."""
     from vectorx_tpu_torch.io.fixtures import FixtureChain
 
-    tree = HR_TREE
     base, frac = 2048 - 180, (100, 10, 60, 25)
     chain = FixtureChain(seed=19, num_blocks=3 * tree + 2,
                          epoch_length=2 * tree,
-                         authorities_per_era=lambda e: HR_AUTH,
+                         authorities_per_era=lambda e: auth,
                          extension_bytes=lambda b: base * frac[b % 4] // 100)
     return chain, 2 * tree, 3 * tree
 
@@ -1075,13 +1109,10 @@ def host_checks() -> dict:
     """The CPU sides of phases 4 and 6, each with its seconds: the proofs
     of `phase4_statements`, the machine proof of the FibonacciAir(3)
     aggregation (child proof included) and the ed25519 batch verify."""
-    import torch
-
     from vectorx_tpu_torch.recursion.aggregate import aggregate_prove
     from vectorx_tpu_torch.stark import FibonacciAir, prove
     from vectorx_tpu_torch.stark.prover import prove_streamed
 
-    torch.set_num_threads(4)
     out = {}
     for name, air, cfg, streamed in phase4_statements():
         t0 = time.perf_counter()
@@ -1135,75 +1166,96 @@ def host_justification(out_dir: str) -> dict:
     return out
 
 
-class HostChecks:
-    """`host_checks`, `host_public_bind`, then `host_justification`, in a
-    second process (`chip_smoke.py --host-checks <dir>`), started before
-    phase 1 so that the host proves while the card runs the other phases.
-    It prints one JSON line for each; the public-bind and justification
-    proofs go to files in `<dir>`.  Its caches live in a directory of
-    their own, so it derives every key and program itself."""
+# The CPU threads of each host process, and the niceness of the
+# host-justification one, which proves on the cores that the card's
+# processes and the host-check process leave idle
+HOST_THREADS, JUSTIFICATION_NICE = 4, 5
 
-    def __init__(self):
+
+class HostChecks:
+    """The CPU sides of phases 4, 6, 11 and 12 in two processes, both
+    started before phase 1 so that the host proves while the card runs the
+    other phases: `chip_smoke.py --host-checks <dir>` prints one JSON line
+    for `host_checks` and then one for `host_public_bind`, and
+    `chip_smoke.py --host-justification <dir>` (at niceness
+    `JUSTIFICATION_NICE`) one for `host_justification`.  The public-bind
+    and justification proofs go to files in `<dir>`.  Each process has a
+    cache directory of its own, so it derives every key and program
+    itself."""
+
+    FLAGS = ("--host-checks", "--host-justification")
+
+    def __init__(self, t_start: float):
+        # the script's start on the wall clock, which the processes share
+        self.epoch0 = time.time() - (time.perf_counter() - t_start)
         self.tmp = tempfile.mkdtemp(prefix="vectorx-host-checks-")
-        self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--host-checks",
-             self.tmp], stdout=subprocess.PIPE, text=True,
+        self.procs = {flag: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, self.tmp],
+            stdout=subprocess.PIPE, text=True,
             env=dict(os.environ,
-                     VECTORX_VK_CACHE=os.path.join(self.tmp, "vk")))
+                     VECTORX_VK_CACHE=os.path.join(self.tmp, flag[2:])))
+            for flag in self.FLAGS}
         self._result = None
-        self._rest_lines = None
+        self._last = {}
 
     def result(self) -> dict:
-        """The first line: phases 4 and 6."""
+        """The host-check process's first line: phases 4 and 6."""
         if self._result is None:
+            proc = self.procs["--host-checks"]
             t0 = time.perf_counter()
-            line = self.proc.stdout.readline()
+            line = proc.stdout.readline()
             if not line:
-                self.proc.wait()
+                proc.wait()
                 raise AssertionError(f"the host-check process failed (exit "
-                                     f"{self.proc.returncode})")
+                                     f"{proc.returncode})")
             self._result = json.loads(line)
             log(f"host checks: waited {time.perf_counter() - t0:.2f} s for "
                 f"the host-check process's first line")
         return self._result
 
-    def _rest(self, timeout: float) -> list:
-        """The lines after the first, once the process has ended."""
-        if self._rest_lines is None:
-            self.result()
+    def _last_line(self, flag: str, timeout: float) -> dict:
+        """The seconds of each proof on process `flag`'s last line, once
+        the process has ended."""
+        if flag not in self._last:
+            if flag == "--host-checks":
+                self.result()
+            proc = self.procs[flag]
+            what = f"the {flag[2:].replace('checks', 'check')} process"
             t0 = time.perf_counter()
             try:
-                out, _ = self.proc.communicate(timeout=timeout)
+                out, _ = proc.communicate(timeout=timeout)
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"the host-check process did not end "
-                                     f"within {timeout:.0f} s")
+                raise AssertionError(f"{what} did not end within "
+                                     f"{timeout:.0f} s")
             lines = out.strip().splitlines()
-            if self.proc.returncode != 0 or len(lines) != 2:
-                raise AssertionError(f"the host-check process failed (exit "
-                                     f"{self.proc.returncode})")
-            log(f"host checks: waited {time.perf_counter() - t0:.2f} s for "
-                f"the host-check process's public-bind and justification "
-                f"proofs")
-            self._rest_lines = [json.loads(line) for line in lines]
-        return self._rest_lines
+            if proc.returncode != 0 or len(lines) != 1:
+                raise AssertionError(f"{what} failed (exit "
+                                     f"{proc.returncode})")
+            res = json.loads(lines[0])
+            log(f"host checks: {what} ended {res['t1'] - self.epoch0:.1f} s "
+                f"since the start; waited {time.perf_counter() - t0:.2f} s "
+                f"for it")
+            self._last[flag] = res["seconds"]
+        return self._last[flag]
 
     def public_bind(self, timeout: float) -> dict:
         """The seconds of each public-bind proof, whose JSON is in
         `proof_path("public", name)`."""
-        return self._rest(timeout)[0]
+        return self._last_line("--host-checks", timeout)
 
     def justification(self, timeout: float) -> dict:
         """The seconds of each of phase 12's CPU proofs, whose JSON is in
         `proof_path("justification", name)`."""
-        return self._rest(timeout)[1]
+        return self._last_line("--host-justification", timeout)
 
     def proof_path(self, kind: str, name: str) -> str:
         return os.path.join(self.tmp, f"{kind}_{name}.json")
 
     def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
@@ -1579,8 +1631,9 @@ def phase_services(dev, card: str) -> None:
 # The aggregated machine of phase 7's statement (rows, log_n), as the
 # statement tape gives it on the CPU
 HR_AGG_MACHINE = (469783, 19)
-# Seconds since the start by which the phase-11 and host-check processes
-# must have ended (the script's limit is 1200 s)
+# Seconds since the start by which the phase-11, phase-12, host-check and
+# host-justification processes must have ended (the script's limit is
+# 1200 s)
 PHASE11_DEADLINE_S = 1150
 
 _HEX_FIELDS = ("input_bytes", "output_bytes", "headers", "header_hashes",
@@ -1858,17 +1911,25 @@ class CardPhase:
 
     def __init__(self, phase: int, t_start: float, beside: str):
         self.phase, self.beside = phase, beside
+        self.relayed = False
         self.started = time.perf_counter() - t_start
+        # the script's start on the wall clock, which the process shares
+        self.epoch0 = time.time() - self.started
         self.dir = tempfile.mkdtemp(prefix=f"vectorx-phase{phase}-")
         self.prepare()
         self.out = open(os.path.join(self.dir, "stdout"), "w+")
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), f"--phase-{phase}",
-             self.dir], stdout=self.out, stderr=self.err)
+             self.dir], stdout=self.out, stderr=self.err,
+            env=dict(os.environ, **self.env()))
 
     def prepare(self) -> None:
         """Files the process reads from its directory."""
+
+    def env(self) -> dict:
+        """Environment variables the process gets beside the parent's."""
+        return {}
 
     def result(self, timeout: float) -> dict:
         t0 = time.perf_counter()
@@ -1880,6 +1941,7 @@ class CardPhase:
             self.proc.wait()
             raise AssertionError(f"{what} did not end within {timeout:.0f} s")
         finally:
+            self.relayed = True
             self.out.seek(0)
             lines = self.out.read().splitlines()
             for line in lines[:-1]:
@@ -1895,13 +1957,21 @@ class CardPhase:
             raise AssertionError(f"{what} printed no result line")
         log(f"phase {self.phase}: the process, started {self.started:.1f} s "
             f"since the start, ran {res['seconds']:.2f} s beside "
-            f"{self.beside}; waited {time.perf_counter() - t0:.2f} s for it")
+            f"{self.beside} (its work from {res['t0'] - self.epoch0:.1f} to "
+            f"{res['t1'] - self.epoch0:.1f} s since the start); waited "
+            f"{time.perf_counter() - t0:.2f} s for it")
         return res
 
     def stop(self) -> None:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        if not self.relayed:
+            # the script failed before waiting for this process: show how
+            # far it got
+            self.out.seek(0)
+            for line in self.out.read().splitlines():
+                log(f"(phase {self.phase}, stopped) {line}")
         self.out.close()
         self.err.close()
         shutil.rmtree(self.dir, ignore_errors=True)
@@ -1991,8 +2061,8 @@ def justification_cpu_statements():
     the statement's SHA-512 chunk at FriConfig(), and the nbits=8 ladder of
     `tests/test_ed25519_ladder.py` at that test's config.  A 253-bit ladder
     of one signature (log_n 10) has twice its LDE points, so twice its CPU
-    Poseidon (minutes already at nbits=8), which the host-check process
-    has no time for beside its other proofs."""
+    Poseidon (minutes already at nbits=8), which the host-justification
+    process has no time for."""
     from vectorx_tpu_torch.circuits import zk_justification as zkj
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.stark import StarkConfig
@@ -2005,6 +2075,48 @@ def justification_cpu_statements():
     return [("sha512_chunk", Sha512Air(msgs), StarkConfig(fri=FriConfig())),
             ("ladder_nbits8", Ed25519LadderAir([toy_ladder_signature()],
                                                nbits=8), small_config(0))]
+
+
+class ProveRecorder:
+    """While active, wraps `prove` in each of `modules`: every call's AIR,
+    log_n, width, whether it streamed, its seconds and its Poseidon
+    seconds (from `timer`, which must be active around it)."""
+
+    def __init__(self, modules, timer: StageTimer):
+        self.modules, self.timer, self.calls = modules, timer, []
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+
+        from vectorx_tpu_torch.stark import prover
+
+        for mod in self.modules:
+            orig = mod.prove
+
+            def prove(air, trace, config, *, device, _orig=orig):
+                p0 = self.timer.times.get("permute", 0.0)
+                t0 = time.perf_counter()
+                out = _orig(air, trace, config, device=device)
+                torch.cuda.synchronize()
+                program = getattr(air, "program", None)
+                self.calls.append(dict(
+                    air=type(air).__name__, log_n=air.log_n,
+                    width=air.width,
+                    streamed=prover._use_streaming(air, config),
+                    seconds=time.perf_counter() - t0,
+                    poseidon=self.timer.times.get("permute", 0.0) - p0,
+                    rows=program.n_rows if program is not None else None))
+                return out
+
+            self._saved.append((mod, orig))
+            mod.prove = prove
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self._saved:
+            mod.prove = orig
+        self._saved.clear()
 
 
 def phase_justification(dev, card: str, cfg, out_dir: str) -> dict:
@@ -2035,34 +2147,13 @@ def phase_justification(dev, card: str, cfg, out_dir: str) -> dict:
         (Sha512Air, "build_trace"), (Ed25519LadderAir, "build_trace"),
         (prover, "prove_streamed"), (stages, "commit_streamed"),
         (stages, "coset_eval_rows"), (stages, "deep_compose_coset")])
-    children = []
-
-    def timed(orig):
-        def prove(air, trace, config, *, device):
-            p0 = timer.times.get("permute", 0.0)
-            t0 = time.perf_counter()
-            out = orig(air, trace, config, device=device)
-            torch.cuda.synchronize()
-            children.append((type(air).__name__, air.log_n, air.width,
-                             prover._use_streaming(air, config),
-                             time.perf_counter() - t0,
-                             timer.times.get("permute", 0.0) - p0))
-            return out
-        return prove
-
-    saved = [(zkj, zkj.prove), (zk_commitment, zk_commitment.prove)]
+    rec = ProveRecorder([zkj, zk_commitment], timer)
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    for mod, orig in saved:
-        mod.prove = timed(orig)
     t0 = time.perf_counter()
-    try:
-        with timer:
-            zk = zkj.prove_justification_zk(j, set_hash, cfg, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        for mod, orig in saved:
-            mod.prove = orig
+    with timer, rec:
+        zk = zkj.prove_justification_zk(j, set_hash, cfg, device=dev)
+    torch.cuda.synchronize()
     t_prove = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     permute = timer.times.get("permute", 0.0)
@@ -2070,13 +2161,15 @@ def phase_justification(dev, card: str, cfg, out_dir: str) -> dict:
         f"permute {permute:.3f} s, {permute / t_prove * 100:.1f} %), peak "
         f"device memory {peak / 2**30:.3f} GiB; chunks: SHA-512 "
         f"{zk.sha_chunk_sizes}, ladder {zk.ladder_chunk_sizes}  [{card}]")
-    for name, log_n, width, streamed, secs, perm in children:
-        log(f"phase 12:   {name} (log_n {log_n}, {width} columns, "
-            f"{'streamed' if streamed else 'not streamed'}): prove "
-            f"{secs:.3f} s, Poseidon {perm:.3f} s  [{card}]")
+    for c in rec.calls:
+        log(f"phase 12:   {c['air']} (log_n {c['log_n']}, {c['width']} "
+            f"columns, {'streamed' if c['streamed'] else 'not streamed'}): "
+            f"prove {c['seconds']:.3f} s, Poseidon {c['poseidon']:.3f} s  "
+            f"[{card}]")
     log(f"phase 12: stage seconds (stages overlap: NTT and Poseidon run "
         f"inside them): {timer.summary()}  [{card}]")
-    shapes = [c[:4] for c in children]
+    shapes = [(c['air'], c['log_n'], c['width'], c['streamed'])
+              for c in rec.calls]
     signed = [sum(j.validator_signed)]
     if shapes != JUSTIFICATION_CHILDREN or zk.sha_chunk_sizes != signed \
             or zk.ladder_chunk_sizes != signed:
@@ -2192,8 +2285,8 @@ class Phase12(CardPhase):
         super().__init__(12, t_start, "phases 3-11")
 
     def finish(self, host: HostChecks, t_start: float) -> dict:
-        """Wait for this process and then for the host-check process's
-        justification proofs, both by `PHASE11_DEADLINE_S`; the card's
+        """Wait for this process and then for the host-justification
+        process's proofs, both by `PHASE11_DEADLINE_S`; the card's
         proof JSON must equal the CPU's.  Returns phase 12's launches."""
         launches = self.result(timeout=_time_left(t_start))
         for name, secs in host.justification(
@@ -2206,12 +2299,386 @@ class Phase12(CardPhase):
                     raise AssertionError(f"justification {name}: the card's "
                                          f"proof != the CPU's")
             log(f"phase 12: {name} proof JSON on the card == the CPU's from "
-                f"the host-check process ({len(card_text)} bytes; CPU prove "
-                f"{secs:.2f} s)")
+                f"the host-justification process ({len(card_text)} bytes; "
+                f"CPU prove {secs:.2f} s)")
         return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phases 13 and 14: the succinct header_range and rotate, each in a process
+# of its own on the card
+# ---------------------------------------------------------------------------
+
+# phase 7's header mix at tree 2 (the deployment's is 256) and 4 of the
+# deployment's 300 authorities (3 signers)
+SUCCINCT_TREE, SUCCINCT_AUTH = 2, 4
+# Seconds since the start by which the phase-13 and phase-14 processes
+# must have ended (`--succinct`)
+SUCCINCT_DEADLINE_S = 1150
+
+
+class VerifyWatch:
+    """While active, watches what the succinct verifiers run under their
+    catch-all: the statement program (`progcache.cached_program`) and the
+    STARK verify.  `reached` says the STARK verify ran; `raised` holds
+    what either raised, which the verifier turned into a rejection."""
+
+    def __enter__(self):
+        from vectorx_tpu_torch.circuits import succinct_header_range as shr
+        from vectorx_tpu_torch.recursion import progcache
+
+        self.reached, self.raised = False, []
+        self._saved = [(shr, "verify", shr.verify),
+                       (progcache, "cached_program",
+                        progcache.cached_program)]
+        for mod, attr, orig in self._saved:
+            def watched(*a, _orig=orig, _stark=mod is shr, **kw):
+                self.reached = self.reached or _stark
+                try:
+                    return _orig(*a, **kw)
+                except Exception as e:
+                    self.raised.append(e)
+                    raise
+            setattr(mod, attr, watched)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for mod, attr, orig in self._saved:
+            setattr(mod, attr, orig)
+        torch.cuda.synchronize()    # a pending device error raises here
+
+
+def rejects(what: str, verify_fn, *, stark: bool) -> None:
+    """Raise unless `verify_fn()` is False for the reason named: from the
+    STARK verify (`stark`) or from the host checks before any STARK work,
+    and with nothing under the verifier raised."""
+    with VerifyWatch() as w:
+        ok = verify_fn()
+    if ok:
+        raise AssertionError(f"accepted {what}")
+    if w.raised:
+        raise AssertionError(f"{what}: rejected only because "
+                             f"{w.raised[0]!r} was raised")
+    if w.reached != stark:
+        raise AssertionError(f"{what}: rejected {'before' if stark else 'by'}"
+                             f" the STARK verify, expected "
+                             f"{'by' if stark else 'before'} it")
+
+
+def succinct_timers(extra_targets):
+    """A StageTimer over the succinct prover's host stages."""
+    from vectorx_tpu_torch.circuits import succinct_header_range as shr
+    from vectorx_tpu_torch.recursion.machine import MachineAir
+    from vectorx_tpu_torch.stark import prover, stages
+    from vectorx_tpu_torch.stark.ed25519_ladder_air import Ed25519LadderAir
+    from vectorx_tpu_torch.stark.sha512_air import Sha512Air
+
+    return StageTimer(extra=[
+        *extra_targets, (shr, "compile_tape"), (MachineAir, "build_trace"),
+        (MachineAir, "constant_columns"), (Sha512Air, "build_trace"),
+        (Ed25519LadderAir, "build_trace"), (prover, "prove_streamed"),
+        (stages, "commit_streamed"), (stages, "coset_eval_rows"),
+        (stages, "deep_compose_coset")])
+
+
+def report_succinct(phase: int, what: str, rec: ProveRecorder,
+                    timer: StageTimer, t_prove: float, peak: int,
+                    tape: str, card: str) -> dict:
+    """Log the prove's stage seconds; returns the machine's row count,
+    log_n and whether it streamed."""
+    *children, m = rec.calls
+    if m["air"] != "MachineAir":
+        raise AssertionError(f"phase {phase}: the last proof is a {m['air']}")
+    t = timer.times
+    log(f"phase {phase}: {what}: prove {t_prove:.3f} s (Poseidon permute "
+        f"{t['permute']:.3f} s, {t['permute'] / t_prove * 100:.1f} %), peak "
+        f"device memory {peak / 2**30:.3f} GiB, {len(children)} child "
+        f"proofs  [{card}]")
+    for c in children:
+        log(f"phase {phase}:   {c['air']} (log_n {c['log_n']}, {c['width']} "
+            f"columns, {'streamed' if c['streamed'] else 'not streamed'}): "
+            f"prove {c['seconds']:.3f} s, Poseidon {c['poseidon']:.3f} s  "
+            f"[{card}]")
+    log(f"phase {phase}: machine: {m['rows']} rows (log_n {m['log_n']}, "
+        f"{m['width']} columns, "
+        f"{'streamed' if m['streamed'] else 'not streamed'}"
+        f"); tape {t[tape]:.3f} s (child proofs' verification replayed "
+        f"on it), compile_tape {t['compile_tape']:.3f} s, trace "
+        f"{t['MachineAir.build_trace']:.3f} s, constant columns "
+        f"{t['MachineAir.constant_columns']:.3f} s, machine prove "
+        f"{m['seconds']:.3f} s (Poseidon {m['poseidon']:.3f} s, "
+        f"{m['poseidon'] / m['seconds'] * 100:.1f} %)  [{card}]")
+    log(f"phase {phase}: stage seconds (stages overlap: NTT and Poseidon run "
+        f"inside them): {timer.summary()}  [{card}]")
+    return {"rows": m["rows"], "log_n": m["log_n"],
+            "streamed": m["streamed"]}
+
+
+def timed_gateway(gw, fid, dev, rec, timer, seen: dict):
+    """Re-register function `fid` of `gw` with its prover run under
+    `rec` and `timer` and both sides timed into `seen`; returns the
+    gateway's own verifier."""
+    import torch
+
+    prove_fn, verify_fn = gw.provers[fid]
+
+    def timed_prover(i):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with timer, rec:
+            seen["out"], seen["proof"] = prove_fn(i)
+        torch.cuda.synchronize()
+        seen["prove"] = time.perf_counter() - t0
+        seen["peak"] = torch.cuda.max_memory_allocated(dev)
+        return seen["out"], seen["proof"]
+
+    def timed_verifier(i, out, p):
+        t0 = time.perf_counter()
+        ok = verify_fn(i, out, p)
+        seen["verify"] = time.perf_counter() - t0
+        return ok
+
+    gw.register_prover(fid, timed_prover, timed_verifier)
+    return verify_fn
+
+
+def tampered_machine_fri(proof):
+    """`proof` with its machine proof's first FRI final coefficient + 1."""
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.stark.serialize import (proof_from_json,
+                                                   proof_to_json)
+
+    mp = proof_from_json(proof_to_json(proof.machine_proof))
+    c0, c1 = mp.fri_proof.final_coeffs[0]
+    mp.fri_proof.final_coeffs[0] = ((c0 + 1) % gl.P, c1)
+    return dataclasses.replace(proof, machine_proof=mp)
+
+
+def phase_succinct_header_range(dev, card: str, cfg, out_dir: str) -> dict:
+    """Phase 13: the succinct header_range through the port's contract and
+    `make_gateway(zk="succinct")`; the cold-cache verify; then the
+    rejections.  Returns the launches of the gateway's prove and verify."""
+    import torch
+
+    from vectorx_tpu_torch.circuits import DummyHeaderRange
+    from vectorx_tpu_torch.circuits import succinct_header_range as shr
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import HeaderRangeInput
+    from vectorx_tpu_torch.recursion import progcache
+    from vectorx_tpu_torch.services import (ContractError, MockGateway,
+                                            VectorXContract, make_gateway,
+                                            range_key)
+    from vectorx_tpu_torch.stark import vk
+
+    tree, auth = SUCCINCT_TREE, SUCCINCT_AUTH
+    chain, trusted, target = header_range_chain(tree, auth)
+    set_hash = chained_hash(chain.era_pubkeys(1))
+    inp = HeaderRangeInput(trusted, chain.get_block_hash(trusted), 1,
+                           set_hash, target).encode()
+    want = DummyHeaderRange(tree).run(inp, chain)
+    sizes = [len(chain.get_encoded_header(b))
+             for b in range(trusted + 1, target + 1)]
+    log(f"phase 13: succinct header_range of blocks ({trusted}, {target}] "
+        f"(headers {sizes} B), {auth} authorities, tree {tree}, FriConfig()")
+    gw = make_gateway(chain, max_num_headers=tree, zk="succinct",
+                      stark_config=cfg, device=dev)
+    contract = VectorXContract(gw, trusted, chain.get_block_hash(trusted), 1,
+                               set_hash, header_range_commitment_tree_size=tree)
+    fid = contract.header_range_function_id
+    timer = succinct_timers([(shr, "_range_tape")])
+    rec, seen = ProveRecorder([shr], timer), {}
+    gw_verify = timed_gateway(gw, fid, dev, rec, timer, seen)
+    contract.request_header_range(1, target)
+    if gw.pending[0][1] != inp:
+        raise AssertionError("the contract's request != phase 13's input")
+    reset_launches()
+    t0 = time.perf_counter()
+    gw.fulfill_next()   # raises ContractError if the gateway rejects
+    t_fulfill = time.perf_counter() - t0
+    launches = read_launches("succinct header_range gateway")
+    proof, t_verify = seen["proof"], seen["verify"]
+    key = range_key(trusted, target)
+    if proof.output_bytes != want or (
+            contract.latest_block,
+            contract.block_height_to_header_hash[target],
+            contract.state_root_commitments[key],
+            contract.data_root_commitments[key]) != \
+            (target, want[:32], want[32:64], want[64:96]):
+        raise AssertionError("the succinct output or the contract's stored "
+                             "hash and commitments != DummyHeaderRange's")
+    log(f"phase 13: make_gateway(zk=\"succinct\", device={dev}): "
+        f"request_header_range(1, {target}) fulfilled in {t_fulfill:.3f} s "
+        f"(one prove, one warm verify {t_verify:.3f} s, on the card); "
+        f"the contract stores the dummy's header hash and commitments  "
+        f"[{card}]")
+    machine = report_succinct(13, "prove_header_range_succinct", rec, timer,
+                              seen["prove"], seen["peak"], "_range_tape",
+                              card)
+    log(f"phase 13: kernel launches on the succinct header_range path (prove "
+        f"and the gateway's verify): {launches}")
+
+    # a verifier on another machine: no program, no verification key
+    progcache.clear_memory_cache()
+    vk.clear_memory_cache()
+    os.environ["VECTORX_VK_CACHE"] = tempfile.mkdtemp(dir=out_dir)
+    cold = succinct_timers([(shr, "_range_tape")])
+    t0 = time.perf_counter()
+    with cold:
+        ok = shr.verify_header_range_succinct(proof, cfg, device=dev)
+    t_cold = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the cold-cache verify rejected the proof")
+    log(f"phase 13: verify_header_range_succinct from a cold program and key "
+        f"cache accepted in {t_cold:.3f} s (tape "
+        f"{cold.times['_range_tape']:.3f} s, compile_tape "
+        f"{cold.times['compile_tape']:.3f} s, constant columns "
+        f"{cold.times['MachineAir.constant_columns']:.3f} s)  [{card}]")
+
+    # only after that accept: the rejections
+    t0 = time.perf_counter()
+    bad_out = want[:40] + bytes([want[40] ^ 1]) + want[41:]
+    evil = MockGateway()
+    evil.register_prover(fid, lambda i: (bad_out, proof), gw_verify)
+    fresh = VectorXContract(evil, trusted, chain.get_block_hash(trusted), 1,
+                            set_hash, header_range_commitment_tree_size=tree)
+    fresh.request_header_range(1, target)
+
+    def commit_tampered() -> bool:
+        try:
+            evil.fulfill_next()
+        except ContractError:
+            return False
+        return True
+
+    rejects("a tampered output with the gateway's proof", commit_tampered,
+            stark=False)
+    if fresh.latest_block != trusted or fresh.data_root_commitments:
+        raise AssertionError("a rejected fulfillment changed the contract")
+    n = proof.num_authorities
+    under = [i < (2 * n) // 3 for i in range(len(proof.validator_signed))]
+    for what, bad, stark in (
+            (f"validator_signed with {sum(under)} of {n}",
+             dataclasses.replace(proof, validator_signed=under), False),
+            ("a tampered FRI final coefficient of the machine proof",
+             tampered_machine_fri(proof), True)):
+        rejects(what, functools.partial(
+            shr.verify_header_range_succinct, bad, cfg, device=dev),
+            stark=stark)
+    log(f"phase 13: a tampered output through the gateway reverts the commit "
+        f"(contract unchanged); validator_signed under the threshold and a "
+        f"tampered FRI final coefficient rejected "
+        f"({time.perf_counter() - t0:.3f} s)  [{card}]")
+    return {"launches": launches, "machine": machine,
+            "prove": seen["prove"], "peak": seen["peak"],
+            "verify": t_verify, "cold_verify": t_cold}
+
+
+def phase_succinct_rotate(dev, card: str, cfg) -> dict:
+    """Phase 14: the succinct rotate of phase 13's chain's set 1 through
+    the port's contract and `make_gateway(zk="succinct")`; then the
+    rejections.  Returns the launches of the gateway's prove and verify."""
+    from vectorx_tpu_torch.circuits import DummyRotate
+    from vectorx_tpu_torch.circuits import succinct_header_range as shr
+    from vectorx_tpu_torch.circuits import succinct_rotate as srt
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import RotateInput
+    from vectorx_tpu_torch.services import (VectorXContract, compute_genesis,
+                                            make_gateway)
+
+    chain, trusted, _ = header_range_chain(SUCCINCT_TREE, SUCCINCT_AUTH)
+    inp = RotateInput(1, chained_hash(chain.era_pubkeys(1))).encode()
+    want = DummyRotate().run(inp, chain)
+    epoch_end = chain.last_justified_block(1)
+    log(f"phase 14: succinct rotate of set 1 ({SUCCINCT_AUTH} authorities; "
+        f"epoch-end block {epoch_end}, "
+        f"{chain.get_header_rotate(epoch_end).header_size} B), FriConfig()")
+    gw = make_gateway(chain, zk="succinct", stark_config=cfg, device=dev)
+    g = compute_genesis(chain, trusted)
+    contract = VectorXContract(gw, g.height, g.header_hash,
+                               g.authority_set_id, g.authority_set_hash)
+    fid = contract.rotate_function_id
+    timer = succinct_timers([(srt, "_rotate_tape")])
+    rec, seen = ProveRecorder([srt, shr], timer), {}
+    timed_gateway(gw, fid, dev, rec, timer, seen)
+    contract.request_rotate(1)
+    if gw.pending[0][1] != inp:
+        raise AssertionError("the contract's rotate request != phase 14's "
+                             "input")
+    reset_launches()
+    t0 = time.perf_counter()
+    gw.fulfill_next()
+    t_fulfill = time.perf_counter() - t0
+    launches = read_launches("succinct rotate gateway")
+    proof = seen["proof"]
+    if proof.output_bytes != want or \
+            contract.authority_set_id_to_hash.get(2) != want:
+        raise AssertionError("the succinct rotate output or the contract's "
+                             "next set hash != DummyRotate's")
+    log(f"phase 14: make_gateway(zk=\"succinct\", device={dev}): "
+        f"request_rotate(1) fulfilled in {t_fulfill:.3f} s (one prove, one "
+        f"warm verify {seen['verify']:.3f} s, on the card); the contract "
+        f"stores DummyRotate's hash of set 2  [{card}]")
+    machine = report_succinct(14, "prove_rotate_succinct", rec, timer,
+                              seen["prove"], seen["peak"], "_rotate_tape",
+                              card)
+    log(f"phase 14: kernel launches on the succinct rotate path (prove and "
+        f"the gateway's verify): {launches}")
+
+    other = dataclasses.replace(proof, output_bytes=bytes(32))
+    t0 = time.perf_counter()
+    rejects("another new-set hash", functools.partial(
+        srt.verify_rotate_succinct, other, config=cfg, device=dev),
+        stark=True)
+    t_other = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rejects("a tampered FRI final coefficient", functools.partial(
+        srt.verify_rotate_succinct, tampered_machine_fri(proof), config=cfg,
+        device=dev), stark=True)
+    log(f"phase 14: another new-set hash rejected ({t_other:.3f} s, the "
+        f"statement program derived); a tampered FRI final coefficient "
+        f"rejected ({time.perf_counter() - t0:.3f} s)  [{card}]")
+    return {"launches": launches, "machine": machine,
+            "prove": seen["prove"], "peak": seen["peak"],
+            "verify": seen["verify"], "other_verify": t_other}
+
+
+def succinct_child(phase: int, path: str) -> dict:
+    """`chip_smoke.py --phase-13|--phase-14 <dir>`: the succinct phase on
+    the card; returns its result and its seconds for the last line."""
+    t_start = time.perf_counter()
+    import torch
+
+    from vectorx_tpu_torch.config import Config, require_device
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.stark import StarkConfig
+
+    dev = require_device(Config())
+    card = card_line()
+    cuda_ntt.load()
+    log(f"phase {phase}: process on {torch.cuda.get_device_name(dev)}")
+    cfg = StarkConfig(fri=FriConfig())
+    if phase == 13:
+        res = phase_succinct_header_range(dev, card, cfg, path)
+    else:
+        res = phase_succinct_rotate(dev, card, cfg)
+    return dict(res, seconds=time.perf_counter() - t_start)
+
+
+class SuccinctPhase(CardPhase):
+    """Phase 13 or 14 (`--succinct`), started after phase 2, beside the
+    other one; its caches in a directory of its own."""
+
+    def __init__(self, phase: int, other: int, t_start: float):
+        super().__init__(phase, t_start, f"phase {other}")
+
+    def env(self) -> dict:
+        return {"VECTORX_VK_CACHE": os.path.join(self.dir, "vk")}
+
+
+def main(succinct: bool) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2224,7 +2691,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"phase 0: card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; os.cpu_count() {os.cpu_count()} for the "
+        f"script's {3 if succinct else 4} processes")
     t0 = time.perf_counter()
     state = list(range(12))
     for _ in range(2000):
@@ -2244,54 +2712,36 @@ def main() -> int:
             f"{n}: {lib.vx_ntt_tile_smem(n, 0) // 1024} / "
             f"{lib.vx_ntt_tile_smem(n, 1) // 1024} KB"
             for n in range(cuda_ntt.S_BITS + 1)))
-    host = HostChecks()
+    if succinct:
+        return run_phases(dev, card, None, t_start, succinct)
+    host = HostChecks(t_start)
     try:
-        return run_phases(dev, card, host, t_start)
+        return run_phases(dev, card, host, t_start, succinct)
     finally:
         host.stop()
 
 
-def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
+def run_main(dev, card: str, host: HostChecks, t_start: float,
+             done) -> dict:
+    """Phases 3-12; returns the launches of every main path."""
     import numpy as np
-    import torch
 
-    from vectorx_tpu_torch import entry
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.stark import FibonacciAir, RangeCheckAir, StarkConfig
-
-    marks = [time.perf_counter()]
-
-    def done(phase: int) -> None:
-        now = time.perf_counter()
-        log(f"phase {phase}: {now - marks[-1]:.2f} s; {now - t_start:.1f} s "
-            f"since the start")
-        marks.append(now)
-
-    log(f"phase 0: {marks[0] - t_start:.2f} s")
-    k = phase_kernels(dev, card)
-    done(1)
-
-    r_cuda = entry.root(dev)
-    r_cpu = entry.root("cpu")
-    if r_cuda != r_cpu:
-        raise AssertionError(f"entry twin: CUDA root {r_cuda} != CPU {r_cpu}")
-    log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU")
-    phase_poseidon(dev, card)
-    done(2)
 
     # phase 12 runs in its own process on the card from here on, after
     # phase 1's kernel medians
     p12 = Phase12(t_start)
     try:
-        # the prover path of the first slice, three steps shallower than
+        # the prover path of the first slice, five steps shallower than
         # there (2^21 / 2^20 rows) so that the whole script fits its limit
         cfg = StarkConfig(fri=FriConfig())
         rng = np.random.default_rng(0)
-        values = rng.integers(0, 1 << 16, size=(8, (1 << 17) - 1),
+        values = rng.integers(0, 1 << 14, size=(8, (1 << 15) - 1),
                               dtype=np.uint64)
-        statements = [("FibonacciAir(log_n=18)", FibonacciAir(log_n=18)),
-                      ("RangeCheckAir(log_n=17, bits=16, V=8)",
-                       RangeCheckAir(17, 16, values))]
+        statements = [("FibonacciAir(log_n=16)", FibonacciAir(log_n=16)),
+                      ("RangeCheckAir(log_n=15, bits=14, V=8)",
+                       RangeCheckAir(15, 14, values))]
         reset_launches()
         for name, air in statements:
             prove_and_check(name, air, cfg, dev, card)
@@ -2329,6 +2779,60 @@ def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
             p11_launches["aggregated"][name] + \
             p11_launches["public_bind"][name] + \
             p12_launches["justification"][name]
+    return launches
+
+
+def run_succinct(t_start: float, done) -> dict:
+    """Phases 13 and 14 (`--succinct`), each in a process of its own,
+    started after phase 2 and run side by side; returns the launches of
+    both paths."""
+    procs = [SuccinctPhase(13, 14, t_start), SuccinctPhase(14, 13, t_start)]
+    try:
+        launches = {}
+        for p in procs:
+            res = p.result(timeout=max(
+                SUCCINCT_DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+            for name, n in res["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            done(p.phase)
+    finally:
+        for p in procs:
+            p.stop()
+    return launches
+
+
+def run_phases(dev, card: str, host: HostChecks | None, t_start: float,
+               succinct: bool) -> int:
+    import torch
+
+    from vectorx_tpu_torch import entry
+
+    marks = [time.perf_counter()]
+
+    def done(phase: int) -> None:
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - marks[-1]:.2f} s; from "
+            f"{marks[-1] - t_start:.1f} to {now - t_start:.1f} s since the "
+            f"start")
+        marks.append(now)
+
+    log(f"phase 0: {marks[0] - t_start:.2f} s")
+    k = phase_kernels(dev, card)
+    done(1)
+
+    r_cuda = entry.root(dev)
+    r_cpu = entry.root("cpu")
+    if r_cuda != r_cpu:
+        raise AssertionError(f"entry twin: CUDA root {r_cuda} != CPU {r_cpu}")
+    log(f"phase 2: entry twin root {r_cuda} equal on CUDA and CPU")
+    phase_poseidon(dev, card)
+    done(2)
+
+    if succinct:
+        launches = run_succinct(t_start, done)
+    else:
+        launches = run_main(dev, card, host, t_start, done)
+
     # each kernel at the header_range path's (512, 2^17) coset LDE block,
     # the main path's largest: K1's column step, K2's transpose
     t1 = k["timed"]["K1 (512, 2^17) column step"]
@@ -2354,17 +2858,29 @@ def run_phases(dev, card: str, host: HostChecks, t_start: float) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--host-checks"] and len(sys.argv) == 3:
-        print(json.dumps(host_checks()), flush=True)
-        print(json.dumps(host_public_bind(sys.argv[2])), flush=True)
-        print(json.dumps(host_justification(sys.argv[2])), flush=True)
-        sys.exit(0)
-    if sys.argv[1:2] == ["--phase-11"] and len(sys.argv) == 3:
-        print(json.dumps({"phase 11": phase11_child(sys.argv[2])}),
+    if sys.argv[1:2] and sys.argv[1] in HostChecks.FLAGS \
+            and len(sys.argv) == 3:
+        import torch
+
+        torch.set_num_threads(HOST_THREADS)
+        if sys.argv[1] == "--host-checks":
+            print(json.dumps(host_checks()), flush=True)
+            last = host_public_bind
+        else:
+            os.nice(JUSTIFICATION_NICE)
+            last = host_justification
+        print(json.dumps({"seconds": last(sys.argv[2]), "t1": time.time()}),
               flush=True)
         sys.exit(0)
-    if sys.argv[1:2] == ["--phase-12"] and len(sys.argv) == 3:
-        print(json.dumps({"phase 12": phase12_child(sys.argv[2])}),
-              flush=True)
+    children = {"--phase-11": phase11_child, "--phase-12": phase12_child,
+                "--phase-13": functools.partial(succinct_child, 13),
+                "--phase-14": functools.partial(succinct_child, 14)}
+    if sys.argv[1:2] and sys.argv[1] in children and len(sys.argv) == 3:
+        t0 = time.time()
+        res = children[sys.argv[1]](sys.argv[2])
+        print(json.dumps({f"phase {sys.argv[1][8:]}": dict(
+            res, t0=t0, t1=time.time())}), flush=True)
         sys.exit(0)
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--succinct"]):
+        raise SystemExit(f"usage: {sys.argv[0]} [--succinct]")
+    sys.exit(main(sys.argv[1:] == ["--succinct"]))

@@ -20,6 +20,8 @@ import dataclasses
 import gzip
 import json
 import os
+import pickle
+import runpy
 import subprocess
 import sys
 
@@ -36,8 +38,10 @@ from vectorx_tpu.io.fixtures import FixtureChain as JFixtureChain
 from vectorx_tpu.io.keccak import keccak256 as jkeccak256
 from vectorx_tpu.io.store import JustificationStore as JJustificationStore
 from vectorx_tpu_torch import config, services
+from vectorx_tpu_torch.bin import _entrypoint
 from vectorx_tpu_torch.circuits import (DummyHeaderRange, HeaderRangeCircuit,
-                                        RotateCircuit, zk_header_range)
+                                        RotateCircuit, succinct_header_range,
+                                        zk_header_range)
 from vectorx_tpu_torch.fri.fri import FriConfig
 from vectorx_tpu_torch.hash.sha256 import chained_hash
 from vectorx_tpu_torch.io.abi import HeaderRangeInput, RotateInput
@@ -262,15 +266,31 @@ def test_genesis_display():
 
 
 def test_gateway_names_its_device_and_mode():
-    """No mode runs without a device but the dummy, and the succinct mode,
-    not ported yet, raises when the gateway is built."""
+    """No mode runs without a device but the dummy.  The succinct mode
+    registers both functions; its verifiers turn away a proof of another
+    input or output before any proof work."""
     with pytest.raises(ValueError, match="device"):
         make_gateway(CHAIN, max_num_headers=16)
     with pytest.raises(ValueError, match="device"):
         make_gateway(CHAIN, max_num_headers=16, dummy=True, zk=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A-5"):
-        make_gateway(CHAIN, max_num_headers=16, zk="succinct",
-                     device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        make_gateway(CHAIN, max_num_headers=16, zk="succinct")
+    gw = make_gateway(CHAIN, max_num_headers=16, zk="succinct",
+                      device="cpu")
+    assert sorted(gw.provers) == [b"\x01" * 32, b"\x02" * 32]
+    inp, out = b"\x03" * 104, b"\x04" * 96
+    proof = succinct_header_range.SuccinctHeaderRangeProof(
+        input_bytes=inp, output_bytes=out, header_lens=[], tree_size=16,
+        signed_message=b"", pubkeys=[], signatures=[], validator_signed=[],
+        num_authorities=0, challenge_digests=[], machine_proof=None)
+    for fid in gw.provers:
+        verifier = gw.provers[fid][1]
+        assert not verifier(inp, out[:-1] + b"\x05", proof)
+        assert not verifier(inp[:-1] + b"\x05", out, proof)
+        assert not verifier(inp, out, None)
+        # matching bytes reach the verifier, which rejects the empty
+        # statement on its host checks
+        assert not verifier(inp, out, proof)
 
 
 def test_config_matches_reference(monkeypatch, tmp_path):
@@ -490,3 +510,49 @@ def test_cli_operator_loop(tmp_path):
     heads = [int(line.split("contract head=")[1].split()[0])
              for line in out.stderr.splitlines() if "contract head=" in line]
     assert len(heads) == 2 and 60 < heads[0] <= heads[1]
+
+
+@dataclasses.dataclass
+class StubProof:
+    input_bytes: bytes
+    output_bytes: bytes
+
+
+def test_entrypoint_prove_zk_writes_the_proof(tmp_path, monkeypatch, capsys):
+    """`prove-zk` with a stub succinct prover: output.json in the
+    reference's machine_stark shape, and a `.proof.pkl` that loads back.
+    An entrypoint without a succinct prover does not offer the command."""
+    inp = b"\x03" * 104
+    calls = []
+
+    def stub(fetcher, input_bytes, cfg):
+        calls.append((fetcher, input_bytes, cfg.device))
+        return StubProof(input_bytes, b"\x04" * 32)
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("VECTORX_DEVICE", "cpu")
+    monkeypatch.setattr(_entrypoint, "make_fetcher", lambda cfg: "fetcher")
+    (tmp_path / "input.json").write_text(json.dumps(
+        {"data": {"input": "0x" + inp.hex()}}))
+    monkeypatch.setattr(sys, "argv", ["x", "prove-zk", "input.json"])
+    _entrypoint.run_entrypoint("rotate", None, "req_bytes",
+                               succinct_prover=stub)
+    assert calls == [("fetcher", inp, "cpu")]
+    assert json.loads((tmp_path / "output.json").read_text()) == {
+        "type": "machine_stark",
+        "data": {"input": "0x" + inp.hex(), "output": "0x" + "04" * 32,
+                 "proof_file": "rotate.proof.pkl"}}
+    assert pickle.loads((tmp_path / "rotate.proof.pkl").read_bytes()) == \
+        StubProof(inp, b"\x04" * 32)
+    with pytest.raises(SystemExit) as e:
+        _entrypoint.run_entrypoint("rotate", None, "req_bytes")
+    assert e.value.code == 2
+    assert "build|prove <input.json>" in capsys.readouterr().out
+    # the three circuit CLIs pass their succinct provers
+    for name in ("header_range_256", "header_range_512", "rotate"):
+        monkeypatch.setattr(sys, "argv", [name])
+        with pytest.raises(SystemExit) as e:
+            runpy.run_module(f"vectorx_tpu_torch.bin.{name}",
+                             run_name="__main__")
+        assert e.value.code == 2
+        assert "build|prove|prove-zk <input.json>" in capsys.readouterr().out

@@ -5,6 +5,8 @@ import functools
 
 from vectorx_tpu_torch.bin._entrypoint import run_entrypoint
 from vectorx_tpu_torch.circuits import HeaderRangeCircuit
+from vectorx_tpu_torch.circuits.succinct_header_range import \
+    prove_header_range_succinct
 from vectorx_tpu_torch.config import require_device
 
 
@@ -16,5 +18,11 @@ def _make(config):
     return functools.partial(circuit.run, device=require_device(config))
 
 
+def _succinct(fetcher, input_bytes, config):
+    return prove_header_range_succinct(fetcher, input_bytes, tree_size=512,
+                                       device=require_device(config))
+
+
 if __name__ == "__main__":
-    run_entrypoint("header_range_512", _make, "req_bytes")
+    run_entrypoint("header_range_512", _make, "req_bytes",
+                   succinct_prover=_succinct)

@@ -122,6 +122,17 @@ def put(key: str, prog: Program, meta=None) -> None:
         pass
 
 
+def cached_program(key: str, build) -> Program:
+    """The program under `key`, or `build()`'s (a statement-mode Program),
+    stored under `key` on a miss."""
+    hit = get(key)
+    if hit is not None:
+        return hit[0]
+    prog = build()
+    put(key, prog)
+    return prog
+
+
 def clear_memory_cache() -> None:
     with _LOCK:
         _MEM.clear()
