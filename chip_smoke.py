@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`vectorx_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # phases 0-12
+    python3 chip_smoke.py               # phases 0-12, 15 and 16
     python3 chip_smoke.py --succinct    # phases 0-2, 13 and 14
 
 Phases, each printed with its result and timing; any failed check raises,
@@ -40,10 +40,13 @@ so the script exits non-zero and prints no final line:
 5. the byte hashes on the card: `blake2b_batch` over 4096 messages of
    random lengths up to 35,840 B against hashlib, `sha256_batch` against
    hashlib, the SHA-256 Merkle root of 256 leaves against the host root.
-6. batched ed25519 on the card: 300 keys, 240 signed, accepted; one forged
-   signature rejected; the CPU run agrees.
+6. batched ed25519 on the card: 300 keys, 240 signed, accepted and one
+   forged signature rejected by the ladder and by the Pippenger MSM
+   (`batch_verify(method="msm")`, window 8), each timed; the CPU runs of
+   both agree; the MSM's sum of the forged set's 481 terms inside that
+   rejection equals their sum in host Python (compressed).
 7. the header_range statement with the reference deployment's widths (300
-   authorities, mixed headers of ~360-2100 B) at tree 16 (the deployment
+   authorities, mixed headers of ~360-2100 B) at tree 8 (the deployment
    runs 256): the non-ZK `HeaderRangeCircuit.run` on the card equal to
    `DummyHeaderRange`'s output; then the ZK header_range as a user drives
    it, through the port's contract and gateway (`make_gateway(zk=True,
@@ -75,23 +78,24 @@ so the script exits non-zero and prints no final line:
    its output equal to `DummyHeaderRange(256)`'s; the same with
    `VECTORX_DEVICE=cuda` and no visible CUDA device exits non-zero (that
    process runs beside the operator loop: it uses no card).
-11. in a second process on the card (`--phase-11 <dir>`), started as soon
-   as phase 7 has its proof and run beside phases 8-10: phase 7's
-   component proofs folded into one machine proof by
-   `aggregate_header_range_proof` (469,783 rows, log_n 19, at
-   `StarkConfig(fri=FriConfig())`), with its stage times, peak device
-   memory and launches; `verify_header_range_zk_aggregated` accepts, then
-   rejects a tampered header hash, a tampered FRI final coefficient and
-   the state and data trees' child statements swapped.  Then
-   `Blake2bAir(bind="public")` over the first 4 of phase 7's headers and
-   `Sha256Air(bind="public")` over 8 of its state-tree nodes, proved and
-   verified on the card, a changed message limb and digest limb
-   rejected, `public_shape`'s constant columns equal to the full AIR's,
-   and their proof JSON equal to the CPU's proofs of the same statements;
-   and `prove_merkle_root` over phase 7's 16 state roots, verified, its
-   root equal to `sha256_merkle_root`'s, a tampered root rejected.  The
-   parent waits for the process before its summary; a non-zero exit, a
-   missing result line or a timeout fails the script.
+11. in a second process on the card (`--phase-11 <dir>`), started after
+   phase 2, which first runs phase 16's hash chain (below) beside phases
+   3-7 and then, once phase 7 hands over its proof, beside phases 8-10:
+   phase 7's component proofs folded into one machine proof by
+   `aggregate_header_range_proof` (at `StarkConfig(fri=FriConfig())`),
+   with its stage times, peak device memory and launches;
+   `verify_header_range_zk_aggregated` accepts, then rejects a tampered
+   header hash, a tampered FRI final coefficient and the state and data
+   trees' child statements swapped.  Then `Blake2bAir(bind="public")`
+   over the first 4 of phase 7's headers and `Sha256Air(bind="public")`
+   over the 4 first-level nodes of its state tree, proved and verified on
+   the card, a changed message limb and digest limb rejected,
+   `public_shape`'s constant columns equal to the full AIR's, and their
+   proof JSON equal to the CPU's proofs of the same statements; and
+   `prove_merkle_root` over phase 7's 8 state roots, verified, its root
+   equal to `sha256_merkle_root`'s, a tampered root rejected.  The parent
+   waits for the process before its summary; a non-zero exit, a missing
+   result line or a timeout fails the script.
 12. in a third process on the card (`--phase-12 <dir>`), started after
    phase 2 and run beside phases 3-11: the in-ZK GRANDPA justification of
    the fixture chain at 20 authorities (16 signers) by
@@ -107,12 +111,31 @@ so the script exits non-zero and prints no final line:
    `tests/test_ed25519_ladder.py` at that test's config, proved and
    verified on the card, a forged scalar and pubkey rejected.  The
    SHA-512 chunk's and the nbits=8 ladder's proof JSON equal the CPU's
-   proofs of the same statements.  The parent waits for the process as
-   for phase 11's.
+   proofs of the same statements.  Then phase 15 and phase 16's SHA-256
+   tree (below).  The parent waits for the process as for phase 11's.
+15. in phase 12's process after phase 12: `FpMulAir` (GF(2^255-19)
+   multiplications, the curta EdDSA building block) at
+   `StarkConfig(fri=FriConfig())`: 1023 random multiplications at log_n 10
+   and the `chain=True` squaring chain at log_n 10, each proved and
+   verified on the card, a tampered `pub_d` (and the chain's `pub_final`)
+   rejected; the proof JSON of an `FpMulAir(9)` at
+   `tests/test_ed25519_air.py`'s config equals the CPU's proof of the same
+   statement from the host-check process.
+16. `recursion.succinct` at `StarkConfig(fri=FriConfig())`, one machine
+   proof each: in phase 12's process after phase 15, `prove_sha_tree`
+   over 4 state roots (the fewest leaves that hide an interior digest);
+   in phase 11's process before phase 11, `prove_hash_chain` over two
+   linked fixture headers (391 and 1332 B).  Each with its stage seconds,
+   peak device memory and launches, a warm verify, a verify from a cold
+   program and key cache, and its tampered statements rejected (a wrong
+   root; a wrong final and a wrong trusted hash), each by the STARK
+   verify and with nothing raised under the verifier's catch-all
+   (`VerifyWatch`).
 
 With `--succinct` the script runs phases 0-2 and then, instead of phases
-3-12, the succinct product pipeline (each statement takes longer on the
-card than phases 3-12 together, so the two do not fit one 1200 s run):
+3-12, 15 and 16, the succinct product pipeline (each statement takes
+longer on the card than phases 3-12 together, so the two do not fit one
+1200 s run):
 
 13. in a process of its own on the card (`--phase-13 <dir>`, its caches in
    `<dir>`), started after phase 2: the succinct header_range (one
@@ -141,7 +164,7 @@ card than phases 3-12 together, so the two do not fit one 1200 s run):
    returning False, or the host bookkeeping before it; a verifier that
    rejects because something under it raised fails the phase.
 
-The CPU sides of phases 4, 6 and 11 run in a second process
+The CPU sides of phases 4, 6, 11 and 15 run in a second process
 (`--host-checks <dir>`) and phase 12's in a third, at a lower priority
 (`--host-justification <dir>`), both started before phase 1.  Each phase ends with a
 line of its seconds and when it started and ended since the start.  The
@@ -568,6 +591,17 @@ class StageTimer:
                          sorted(self.times.items(), key=lambda kv: -kv[1]))
 
 
+def release_card_memory(dev) -> int:
+    """Give the card's cached, unused blocks back to the device (the card's
+    processes share its memory, and each caching allocator would hold on
+    to its own peak); returns the bytes given back."""
+    import torch
+
+    before = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    return before - torch.cuda.memory_reserved(dev)
+
+
 def reset_launches() -> None:
     from vectorx_tpu_torch.ntt import cuda_ntt
 
@@ -575,14 +609,14 @@ def reset_launches() -> None:
         cuda_ntt.LAUNCHES[name] = 0
 
 
-def read_launches(path: str) -> dict:
-    """The kernel launch counts since `reset_launches`; every kernel must
-    have launched on `path`."""
+def read_launches(path: str, need=None) -> dict:
+    """The kernel launch counts since `reset_launches`; every kernel (or
+    every one named in `need`) must have launched on `path`."""
     from vectorx_tpu_torch.ntt import cuda_ntt
 
     counts = dict(cuda_ntt.LAUNCHES)
     for name, count in counts.items():
-        if count <= 0:
+        if count <= 0 and (need is None or name in need):
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{path} path")
     return counts
@@ -716,7 +750,8 @@ def ed25519_batch():
     return pks, [msg] * n, sigs, mask, forged
 
 
-def ed25519_verify(batch, sigs, device) -> tuple[bool, float]:
+def ed25519_verify(batch, sigs, device, method: str = "ladder"
+                   ) -> tuple[bool, float]:
     import torch
 
     from vectorx_tpu_torch.curves.ed25519_batch import batch_verify
@@ -724,26 +759,82 @@ def ed25519_verify(batch, sigs, device) -> tuple[bool, float]:
     pks, msgs, _, mask, _ = batch
     t0 = time.perf_counter()
     ok = batch_verify(pks, msgs, sigs, mask, rng=random.Random(7),
-                      device=device)
+                      device=device, method=method)
     if device != "cpu":
         torch.cuda.synchronize()
     return ok, time.perf_counter() - t0
 
 
+def host_msm_sum(scalars, points) -> bytes:
+    """Σ[s_i]P_i in host Python, compressed."""
+    from vectorx_tpu_torch.curves import ed25519 as host
+
+    acc = host.IDENTITY
+    for s, p in zip(scalars, points):
+        acc = host.point_add(acc, host.scalar_mult(s, p))
+    return host.point_compress(acc)
+
+
 def phase_ed25519(dev, card: str, host: "HostChecks") -> None:
+    """The batch verified by the ladder and by the Pippenger MSM: both
+    accept the honest set and reject the forged one, and agree with the
+    CPU; the MSM's sum of the forged set's terms (inside that rejection)
+    equals their sum in host Python."""
+    from vectorx_tpu_torch.curves import ed25519 as ed
+    from vectorx_tpu_torch.curves import ed25519_batch as eb
+
     batch = ed25519_batch()
-    ok, t_dev = ed25519_verify(batch, batch[2], dev)
-    if not ok:
-        raise AssertionError("batch_verify rejected valid signatures")
-    bad, t_bad = ed25519_verify(batch, batch[4], dev)
-    if bad:
-        raise AssertionError("batch_verify accepted a forged signature")
-    ok_cpu, t_cpu = host.result()["ed25519"]
-    if ok_cpu != ok:
-        raise AssertionError("batch_verify: CUDA and CPU disagree")
-    log(f"phase 6: ed25519 batch_verify, 300 keys, 240 signed: accepted in "
-        f"{t_dev:.3f} s, forged signature rejected in {t_bad:.3f} s; CPU "
-        f"agrees ({t_cpu:.3f} s in the host-check process)  [{card}]")
+    cpu = host.result()
+    orig_msm, sums = eb.msm, []
+
+    def recorded_msm(scalars, points, w=eb.MSM_WINDOW):
+        sums.append((list(scalars), orig_msm(scalars, points, w)))
+        return sums[-1][1]
+
+    times = {}
+    for method in ("ladder", "msm"):
+        ok, t_ok = ed25519_verify(batch, batch[2], dev, method)
+        if not ok:
+            raise AssertionError(f"batch_verify(method={method!r}) rejected "
+                                 f"valid signatures")
+        eb.msm = recorded_msm
+        try:
+            bad, t_bad = ed25519_verify(batch, batch[4], dev, method)
+        finally:
+            eb.msm = orig_msm
+        if bad:
+            raise AssertionError(f"batch_verify(method={method!r}) accepted "
+                                 f"a forged signature")
+        ok_cpu, t_cpu = cpu[f"ed25519_{method}"]
+        if ok_cpu != ok:
+            raise AssertionError(f"batch_verify(method={method!r}): CUDA and "
+                                 f"CPU disagree")
+        times[method] = t_ok
+        log(f"phase 6: ed25519 batch_verify(method={method!r}), 300 keys, "
+            f"240 signed: accepted in {t_ok:.3f} s, forged signature "
+            f"rejected in {t_bad:.3f} s; CPU agrees ({t_cpu:.3f} s in the "
+            f"host-check process)  [{card}]")
+    # the rejection's sum: one extended point, semi-reduced limbs
+    pks, msgs, _, mask, forged = batch
+    scalars, points = eb.batch_terms(pks, msgs, forged, mask,
+                                     rng=random.Random(7))
+    if [s for s, _ in sums] != [scalars]:
+        raise AssertionError("batch_verify(method='msm') did not sum the "
+                             "forged set's terms once")
+    x, y, z, _ = [eb.to_ints(a[None, :])[0] for a in sums[0][1]]
+    zi = pow(z, ed.Q - 2, ed.Q)
+    gx, gy = x * zi % ed.Q, y * zi % ed.Q
+    got = ed.point_compress((gx, gy, 1, gx * gy % ed.Q))
+    t0 = time.perf_counter()
+    want = host_msm_sum(scalars, points)
+    t_host = time.perf_counter() - t0
+    if got != want or want == ed.point_compress(ed.IDENTITY):
+        raise AssertionError("msm of the forged set's terms != the host sum")
+    log(f"phase 6: the MSM inside that rejection (w={eb.MSM_WINDOW}, the "
+        f"forged set's {len(points)} terms: 2 x 240 signed + 1) == their "
+        f"sum in host Python ({t_host:.3f} s), compressed, not the "
+        f"identity; the honest set took {times['ladder']:.3f} s by the "
+        f"ladder, {times['msm']:.3f} s by the MSM  [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -751,9 +842,9 @@ def phase_ed25519(dev, card: str, host: "HostChecks") -> None:
 # ---------------------------------------------------------------------------
 
 # the reference deployment's header_range with 300 authorities and headers
-# cycling through 100/10/60/25 % of a 2048 B bound, at tree 16 (the
+# cycling through 100/10/60/25 % of a 2048 B bound, at tree 8 (the
 # deployment's is 256) so that the whole script fits its limit
-HR_TREE, HR_AUTH = 16, 300
+HR_TREE, HR_AUTH = 8, 300
 
 
 def header_range_chain(tree: int = HR_TREE, auth: int = HR_AUTH):
@@ -772,7 +863,7 @@ def header_range_chain(tree: int = HR_TREE, auth: int = HR_AUTH):
 def public_bind_statements(headers: list) -> list:
     """Phase 11's public-bind statements, depth cuts of phase 7's: the
     Blake2b hashes of the first 4 of its headers and the SHA-256 nodes of
-    the first level of its state-root tree (8 nodes over 16 leaves), each
+    the first level of its state-root tree (4 nodes over 8 leaves), each
     with `bind="public"`; as (name, AIR, the shape `public_shape` takes)."""
     from vectorx_tpu_torch.circuits.subchain import decode_header_fields
     from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir
@@ -1125,27 +1216,35 @@ def host_checks() -> dict:
     agg = aggregate_prove([child], [child_proof], cfg, device="cpu")
     out[AGGREGATION] = (proof_text(agg.proof), time.perf_counter() - t0)
     batch = ed25519_batch()
-    out["ed25519"] = ed25519_verify(batch, batch[2], "cpu")
+    for method in ("ladder", "msm"):
+        out[f"ed25519_{method}"] = ed25519_verify(batch, batch[2], "cpu",
+                                                  method)
     return out
 
 
-def host_public_bind(out_dir: str) -> dict:
-    """The CPU side of phase 11's public bind: the proofs of
-    `public_bind_statements` over phase 7's headers at `FriConfig()`, on
-    the CPU, their JSON written to `out_dir`; the seconds of each."""
+def host_card_proofs(out_dir: str) -> dict:
+    """The CPU proofs that phases 11 and 15 hold the card's against: the
+    proofs of `public_bind_statements` over phase 7's headers at
+    `FriConfig()` ("public") and of `fpmul_identity_statement` ("fpmul"),
+    their JSON written to `out_dir`; the seconds of each, by kind."""
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.stark import StarkConfig, prove
 
     chain, trusted, target = header_range_chain()
     headers = [chain.get_encoded_header(b)
                for b in range(trusted + 1, target + 1)]
-    cfg, out = StarkConfig(fri=FriConfig()), {}
-    for name, air, _ in public_bind_statements(headers):
+    cfg = StarkConfig(fri=FriConfig())
+    todo = [("public", name, air, cfg)
+            for name, air, _ in public_bind_statements(headers)]
+    todo.append(("fpmul", "FpMulAir9", *fpmul_identity_statement()))
+    out = {"public": {}, "fpmul": {}}
+    for kind, name, air, config in todo:
         t0 = time.perf_counter()
-        text = proof_text(prove(air, air.build_trace(), cfg, device="cpu"))
-        with open(os.path.join(out_dir, f"public_{name}.json"), "w") as f:
+        text = proof_text(prove(air, air.build_trace(), config,
+                                device="cpu"))
+        with open(os.path.join(out_dir, f"{kind}_{name}.json"), "w") as f:
             f.write(text)
-        out[name] = time.perf_counter() - t0
+        out[kind][name] = time.perf_counter() - t0
     return out
 
 
@@ -1173,15 +1272,15 @@ HOST_THREADS, JUSTIFICATION_NICE = 4, 5
 
 
 class HostChecks:
-    """The CPU sides of phases 4, 6, 11 and 12 in two processes, both
+    """The CPU sides of phases 4, 6, 11, 12 and 15 in two processes, both
     started before phase 1 so that the host proves while the card runs the
     other phases: `chip_smoke.py --host-checks <dir>` prints one JSON line
-    for `host_checks` and then one for `host_public_bind`, and
+    for `host_checks` and then one for `host_card_proofs`, and
     `chip_smoke.py --host-justification <dir>` (at niceness
-    `JUSTIFICATION_NICE`) one for `host_justification`.  The public-bind
-    and justification proofs go to files in `<dir>`.  Each process has a
-    cache directory of its own, so it derives every key and program
-    itself."""
+    `JUSTIFICATION_NICE`) one for `host_justification`.  The public-bind,
+    FpMulAir and justification proofs go to files in `<dir>`.  Each
+    process has a cache directory of its own, so it derives every key and
+    program itself."""
 
     FLAGS = ("--host-checks", "--host-justification")
 
@@ -1241,7 +1340,12 @@ class HostChecks:
     def public_bind(self, timeout: float) -> dict:
         """The seconds of each public-bind proof, whose JSON is in
         `proof_path("public", name)`."""
-        return self._last_line("--host-checks", timeout)
+        return self._last_line("--host-checks", timeout)["public"]
+
+    def fpmul(self, timeout: float) -> dict:
+        """The seconds of phase 15's CPU proof, whose JSON is in
+        `proof_path("fpmul", name)`."""
+        return self._last_line("--host-checks", timeout)["fpmul"]
 
     def justification(self, timeout: float) -> dict:
         """The seconds of each of phase 12's CPU proofs, whose JSON is in
@@ -1630,7 +1734,7 @@ def phase_services(dev, card: str) -> None:
 
 # The aggregated machine of phase 7's statement (rows, log_n), as the
 # statement tape gives it on the CPU
-HR_AGG_MACHINE = (469783, 19)
+HR_AGG_MACHINE = (452455, 19)
 # Seconds since the start by which the phase-11, phase-12, host-check and
 # host-justification processes must have ended (the script's limit is
 # 1200 s)
@@ -1863,7 +1967,10 @@ def phase_public_bind(dev, card: str, zk, cfg, out_dir: str) -> dict:
     if not verify_merkle_root(mp, cfg, device=dev):
         raise AssertionError("verify_merkle_root rejected the proof")
     t_verify = time.perf_counter() - t0
-    launches = read_launches("public bind and zk_merkle")
+    # at tree 8 each of these LDEs is one tile (2^13 points at most), so
+    # only K1 runs on this path
+    launches = read_launches("public bind and zk_merkle",
+                             need=("ntt_tile",))
     if verify_merkle_root(dataclasses.replace(mp, root=bytes(32)), cfg,
                           device=dev):
         raise AssertionError("zk_merkle: tampered root accepted")
@@ -1878,8 +1985,9 @@ def phase_public_bind(dev, card: str, zk, cfg, out_dir: str) -> dict:
 
 
 def phase11_child(path: str) -> dict:
-    """`chip_smoke.py --phase-11 <dir>`: phase 11 on the card, from phase
-    7's proof in `<dir>`; returns its launches and its seconds (imports
+    """`chip_smoke.py --phase-11 <dir>`: phase 16's hash chain on the card,
+    then phase 11 from phase 7's proof, once the parent has handed it over
+    in `<dir>`; returns the launches and the process's seconds (imports
     included) for the last line."""
     t_start = time.perf_counter()
     import torch
@@ -1892,13 +2000,25 @@ def phase11_child(path: str) -> dict:
     dev = require_device(Config())
     card = card_line()
     cuda_ntt.load()
-    zk = read_header_range_proof(os.path.join(path, "header_range.json"))
-    log(f"phase 11: process on {torch.cuda.get_device_name(dev)}: phase 7's "
-        f"proof read in {time.perf_counter() - t_start:.2f} s")
+    log(f"phase 11: process on {torch.cuda.get_device_name(dev)}")
     cfg = StarkConfig(fri=FriConfig())
+    chain = phase_hash_chain(dev, card, cfg, path)
+    log(f"phase 16: hash chain {time.perf_counter() - t_start:.2f} s since "
+        f"the phase-11 process started; "
+        f"{release_card_memory(dev) / 2**30:.2f} GiB given back")
+    t0 = time.perf_counter()
+    proof_path = os.path.join(path, "header_range.json")
+    while not os.path.exists(proof_path):
+        if time.perf_counter() - t_start > PHASE11_DEADLINE_S:
+            raise AssertionError("phase 7's proof was never handed over")
+        time.sleep(0.5)
+    zk = read_header_range_proof(proof_path)
+    log(f"phase 11: waited {time.perf_counter() - t0:.2f} s for phase 7's "
+        f"proof and read it")
     agg = phase_aggregated_header_range(dev, card, zk, cfg)
+    release_card_memory(dev)
     pb = phase_public_bind(dev, card, zk, cfg, path)
-    return {"aggregated": agg, "public_bind": pb,
+    return {"aggregated": agg, "public_bind": pb, "hash_chain": chain,
             "seconds": time.perf_counter() - t_start}
 
 
@@ -1983,16 +2103,19 @@ def _time_left(t_start: float) -> float:
 
 
 class Phase11(CardPhase):
-    """Phase 11, started as soon as phase 7 has its proof, beside phases
-    8-10."""
+    """Phase 11's process, started after phase 2: phase 16's hash chain
+    beside phases 3-7, then phase 11 beside phases 8-10, from the proof
+    that phase 7 hands over."""
 
-    def __init__(self, proof, t_start: float):
-        self.proof = proof
-        super().__init__(11, t_start, "phases 8-10")
+    def __init__(self, t_start: float):
+        super().__init__(11, t_start, "phases 3-10")
 
-    def prepare(self) -> None:
-        write_header_range_proof(self.proof, os.path.join(
-            self.dir, "header_range.json"))
+    def hand_over(self, proof) -> None:
+        """Give the process phase 7's proof (written whole, then renamed
+        into the name it waits for)."""
+        tmp = os.path.join(self.dir, "header_range.json.part")
+        write_header_range_proof(proof, tmp)
+        os.replace(tmp, os.path.join(self.dir, "header_range.json"))
 
     def finish(self, host: HostChecks, t_start: float) -> dict:
         """Wait for this process and then for the host-check process's
@@ -2271,10 +2394,20 @@ def phase12_child(path: str) -> dict:
     card = card_line()
     cuda_ntt.load()
     log(f"phase 12: process on {torch.cuda.get_device_name(dev)}")
-    launches = phase_justification(dev, card, StarkConfig(fri=FriConfig()),
-                                   path)
+    cfg = StarkConfig(fri=FriConfig())
+    launches = phase_justification(dev, card, cfg, path)
     phase_ladder_identity(dev, card, path)
-    return {"justification": launches,
+    log(f"phase 12: {time.perf_counter() - t_start:.2f} s since the process "
+        f"started; {release_card_memory(dev) / 2**30:.2f} GiB given back")
+    t0 = time.perf_counter()
+    fpmul = phase_fpmul(dev, card, cfg, path)
+    log(f"phase 15: {time.perf_counter() - t0:.2f} s in the phase-12 "
+        f"process; {release_card_memory(dev) / 2**30:.2f} GiB given back")
+    t0 = time.perf_counter()
+    tree = phase_sha_tree(dev, card, cfg, path)
+    log(f"phase 16: SHA tree {time.perf_counter() - t0:.2f} s in the "
+        f"phase-12 process")
+    return {"justification": launches, "fpmul": fpmul, "sha_tree": tree,
             "seconds": time.perf_counter() - t_start}
 
 
@@ -2287,7 +2420,8 @@ class Phase12(CardPhase):
     def finish(self, host: HostChecks, t_start: float) -> dict:
         """Wait for this process and then for the host-justification
         process's proofs, both by `PHASE11_DEADLINE_S`; the card's
-        proof JSON must equal the CPU's.  Returns phase 12's launches."""
+        proof JSON must equal the CPU's, phase 15's FpMulAir proof too
+        (from the host-check process).  Returns the process's result."""
         launches = self.result(timeout=_time_left(t_start))
         for name, secs in host.justification(
                 timeout=_time_left(t_start)).items():
@@ -2301,7 +2435,271 @@ class Phase12(CardPhase):
             log(f"phase 12: {name} proof JSON on the card == the CPU's from "
                 f"the host-justification process ({len(card_text)} bytes; "
                 f"CPU prove {secs:.2f} s)")
+        for name, secs in host.fpmul(timeout=_time_left(t_start)).items():
+            with open(os.path.join(self.dir, f"fpmul_{name}.json")) as f:
+                card_text = f.read()
+            with open(host.proof_path("fpmul", name)) as f:
+                if f.read() != card_text:
+                    raise AssertionError(f"{name}: the card's proof != the "
+                                         f"CPU's")
+            log(f"phase 15: {name} proof JSON on the card == the CPU's from "
+                f"the host-check process ({len(card_text)} bytes; CPU prove "
+                f"{secs:.2f} s)")
         return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: FpMulAir, in phase 12's process after phase 12
+# ---------------------------------------------------------------------------
+
+def fpmul_statements():
+    """Phase 15's statements, as (name, AIR): 1023 random muls at log_n 10
+    (the shape of the JAX package's AIR benchmark, the curta EdDSA
+    building block) and the `chain=True` squaring chain at log_n 10."""
+    from vectorx_tpu_torch.stark.ed25519_air import FpMulAir, Q
+
+    rng = random.Random(15)
+    muls = [(rng.getrandbits(256), rng.getrandbits(256))
+            for _ in range((1 << 10) - 1)]
+    x = rng.getrandbits(256) % Q
+    return [("1023 muls", FpMulAir(10, muls)),
+            ("squaring chain", FpMulAir(10, [(x, x)], chain=True))]
+
+
+def fpmul_identity_statement():
+    """(AIR, config) of the FpMulAir proof phase 15 holds against the
+    CPU's: 5 random muls at log_n 9 at `tests/test_ed25519_air.py`'s
+    config."""
+    from vectorx_tpu_torch.stark.ed25519_air import FpMulAir
+
+    rng = random.Random(9)
+    muls = [(rng.getrandbits(256), rng.getrandbits(256)) for _ in range(5)]
+    return FpMulAir(9, muls), small_config(1)
+
+
+def phase_fpmul(dev, card: str, cfg, out_dir: str) -> dict:
+    """Phase 15: each of `fpmul_statements` proved and verified on the
+    card, its tampered publics rejected (`pub_d`, and the chain's
+    `pub_final`); then `fpmul_identity_statement`'s proof, whose JSON goes
+    to `out_dir` for the parent to hold against the CPU's.  Returns the
+    launches of the two statements' proves and verifies."""
+    import copy
+
+    import torch
+
+    from vectorx_tpu_torch.stark import prove, verify
+    from vectorx_tpu_torch.stark.ed25519_air import Q
+
+    reset_launches()
+    for name, air in fpmul_statements():
+        t0 = time.perf_counter()
+        trace = air.build_trace()
+        t_trace = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        proof = prove(air, trace, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        if not verify(air, proof, cfg, device=dev):
+            raise AssertionError(f"FpMulAir {name}: verify rejected")
+        t_ver = time.perf_counter() - t0
+        a, b = air.muls[0]
+        if air.pub_d != a * b % Q or (air.chain and air.pub_final != pow(
+                a, 1 << (air.n - 1), Q)):
+            raise AssertionError(f"FpMulAir {name}: wrong public products")
+        tampers = ["pub_d"] + (["pub_final"] if air.chain else [])
+        for attr in tampers:
+            bad = copy.copy(air)
+            setattr(bad, attr, (getattr(air, attr) + 1) % Q)
+            if verify(bad, proof, cfg, device=dev):
+                raise AssertionError(f"FpMulAir {name}: a tampered {attr} "
+                                     f"accepted")
+        log(f"phase 15: FpMulAir {name} (log_n {air.log_n}, {len(air.muls)} "
+            f"muls, {air.width} columns, {len(air.lookups())} lookups, "
+            f"FriConfig()): trace {t_trace:.3f} s, prove {t_prove:.3f} s, "
+            f"peak device memory {peak / 2**30:.3f} GiB, verify "
+            f"{t_ver:.3f} s; a tampered {' and '.join(tampers)} rejected  "
+            f"[{card}]")
+    # a 2^13-point LDE is one tile: only K1 runs on this path
+    launches = read_launches("FpMulAir", need=("ntt_tile",))
+    log(f"phase 15: kernel launches on the FpMulAir path (proves and "
+        f"verifies): {launches}")
+    air, small = fpmul_identity_statement()
+    proof = prove(air, air.build_trace(), small, device=dev)
+    if not verify(air, proof, small, device=dev):
+        raise AssertionError("FpMulAir(9): verify rejected")
+    with open(os.path.join(out_dir, "fpmul_FpMulAir9.json"), "w") as f:
+        f.write(proof_text(proof))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: recursion.succinct — the SHA-256 tree in phase 12's process
+# after phase 15, the Blake2b hash chain in phase 11's process before
+# phase 11
+# ---------------------------------------------------------------------------
+
+# 4 leaves: the fewest that leave interior digests hidden (with 2 the top
+# node binds the root directly)
+SHA_TREE_LEAVES = 4
+
+
+def sha_tree_leaves() -> list:
+    """The state roots of the first `SHA_TREE_LEAVES` headers of phase
+    13's fixture chain: the data/state-root commitment tree's leaves."""
+    from vectorx_tpu_torch.circuits.subchain import decode_header_fields
+
+    chain, _, _ = header_range_chain(SUCCINCT_TREE, SUCCINCT_AUTH)
+    headers = [chain.get_encoded_header(b)
+               for b in range(1, SHA_TREE_LEAVES + 1)]
+    return [decode_header_fields(h, len(h)).state_root for h in headers]
+
+
+def chain_headers() -> list:
+    """The hash chain's headers: the two linked headers of phase 13's
+    fixture chain (391 and 1332 B)."""
+    chain, trusted, target = header_range_chain(SUCCINCT_TREE, SUCCINCT_AUTH)
+    return [chain.get_encoded_header(b) for b in range(trusted + 1,
+                                                       target + 1)]
+
+
+def cold_caches(out_dir: str) -> None:
+    """Empty program and key caches, as on another machine."""
+    from vectorx_tpu_torch.recursion import progcache
+    from vectorx_tpu_torch.stark import vk
+
+    progcache.clear_memory_cache()
+    vk.clear_memory_cache()
+    os.environ["VECTORX_VK_CACHE"] = tempfile.mkdtemp(dir=out_dir)
+
+
+def prove_succinct(what: str, tape: str, prove_fn, dev, card: str):
+    """`prove_fn()` (a `recursion.succinct` prover) stage-timed on the
+    card; returns the proof, its report and its seconds and peak."""
+    import torch
+
+    from vectorx_tpu_torch.recursion import succinct
+
+    timer = succinct_timers([(succinct, tape)], module=succinct)
+    rec = ProveRecorder([succinct], timer)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with timer, rec:
+        proof = prove_fn()
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    machine = report_succinct(16, what, rec, timer, t_prove, peak, tape,
+                              card)
+    return proof, dict(machine=machine, prove=t_prove, peak=peak)
+
+
+def verify_twice(what: str, tape: str, verify_fn, out_dir: str,
+                 card: str) -> dict:
+    """`verify_fn()` must accept warm (program and keys cached by the
+    prove) and cold (both derived anew); returns both seconds."""
+    from vectorx_tpu_torch.recursion import succinct
+
+    t0 = time.perf_counter()
+    if not verify_fn():
+        raise AssertionError(f"{what}: the warm verify rejected the proof")
+    t_warm = time.perf_counter() - t0
+    cold_caches(out_dir)
+    timer = succinct_timers([(succinct, tape)], module=succinct)
+    t0 = time.perf_counter()
+    with timer:
+        ok = verify_fn()
+    t_cold = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"{what}: the cold-cache verify rejected the "
+                             f"proof")
+    log(f"phase 16: {what}: warm verify accepted in {t_warm:.3f} s; from a "
+        f"cold program and key cache in {t_cold:.3f} s (tape "
+        f"{timer.times[tape]:.3f} s, compile_tape "
+        f"{timer.times['compile_tape']:.3f} s, constant columns "
+        f"{timer.times['MachineAir.constant_columns']:.3f} s)  [{card}]")
+    return {"verify": t_warm, "cold_verify": t_cold}
+
+
+def phase_sha_tree(dev, card: str, cfg, out_dir: str) -> dict:
+    """Phase 16, first half: `prove_sha_tree` over `sha_tree_leaves` at
+    `FriConfig()` (one machine proof), its warm and cold verify, then a
+    wrong root rejected by the STARK verify.  Returns the launches of the
+    prove and the warm verify, and the report."""
+    from vectorx_tpu_torch.recursion import succinct
+
+    leaves = sha_tree_leaves()
+    root = succinct.sha_tree_root(leaves)
+    log(f"phase 16: SHA-256 tree over {len(leaves)} state roots of phase "
+        f"13's chain, FriConfig()")
+    reset_launches()
+    tp, res = prove_succinct(
+        "prove_sha_tree", "_tree_tape",
+        lambda: succinct.prove_sha_tree(leaves, cfg, device=dev), dev, card)
+    verify = functools.partial(succinct.verify_sha_tree, leaves, root, tp,
+                               cfg, device=dev)
+    t0 = time.perf_counter()
+    if not verify():
+        raise AssertionError("verify_sha_tree rejected the proof")
+    launches = read_launches("SHA tree")
+    log(f"phase 16: kernel launches on the SHA tree path (prove and warm "
+        f"verify, {time.perf_counter() - t0:.3f} s): {launches}")
+    res.update(verify_twice("verify_sha_tree", "_tree_tape", verify, out_dir,
+                            card))
+    t0 = time.perf_counter()
+    rejects("a wrong root", functools.partial(
+        succinct.verify_sha_tree, leaves, bytes(32), tp, cfg, device=dev),
+        stark=True, module=succinct)
+    log(f"phase 16: a wrong root rejected by the STARK verify "
+        f"({time.perf_counter() - t0:.3f} s, its program derived)  [{card}]")
+    return dict(res, launches=launches)
+
+
+def phase_hash_chain(dev, card: str, cfg, out_dir: str) -> dict:
+    """Phase 16, second half: `prove_hash_chain` over `chain_headers` at
+    `FriConfig()` (one machine proof), its warm and cold verify, then a
+    wrong final hash and a wrong trusted hash rejected by the STARK
+    verify.  Returns the launches of the prove and the warm verify, and
+    the report."""
+    import hashlib
+
+    from vectorx_tpu_torch.recursion import succinct
+
+    headers = chain_headers()
+    trusted = headers[0][:32]
+    final = hashlib.blake2b(headers[-1], digest_size=32).digest()
+    log(f"phase 16: Blake2b hash chain over {len(headers)} linked headers "
+        f"({[len(h) for h in headers]} B), FriConfig()")
+    reset_launches()
+    hc, res = prove_succinct(
+        "prove_hash_chain", "_chain_tape",
+        lambda: succinct.prove_hash_chain(headers, cfg, device=dev), dev,
+        card)
+    verify = functools.partial(succinct.verify_hash_chain, trusted, final,
+                               hc, cfg, device=dev)
+    t0 = time.perf_counter()
+    if not verify():
+        raise AssertionError("verify_hash_chain rejected the proof")
+    launches = read_launches("hash chain")
+    log(f"phase 16: kernel launches on the hash chain path (prove and warm "
+        f"verify, {time.perf_counter() - t0:.3f} s): {launches}")
+    res.update(verify_twice("verify_hash_chain", "_chain_tape", verify,
+                            out_dir, card))
+    for what, args in (
+            ("a wrong final hash", (trusted, bytes([final[0] ^ 1])
+                                    + final[1:])),
+            ("a wrong trusted hash", (bytes([trusted[0] ^ 1]) + trusted[1:],
+                                      final))):
+        t0 = time.perf_counter()
+        rejects(what, functools.partial(
+            succinct.verify_hash_chain, *args, hc, cfg, device=dev),
+            stark=True, module=succinct)
+        log(f"phase 16: {what} rejected by the STARK verify "
+            f"({time.perf_counter() - t0:.3f} s, its program derived)  "
+            f"[{card}]")
+    return dict(res, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2320,19 +2718,25 @@ SUCCINCT_DEADLINE_S = 1150
 class VerifyWatch:
     """While active, watches what the succinct verifiers run under their
     catch-all: the statement program (`progcache.cached_program`) and the
-    STARK verify.  `reached` says the STARK verify ran; `raised` holds
+    STARK verify (`verify` as `module` imports it, by default
+    `circuits.succinct_header_range`, whose helper both succinct circuits
+    verify through).  `reached` says the STARK verify ran; `raised` holds
     what either raised, which the verifier turned into a rejection."""
+
+    def __init__(self, module=None):
+        self.module = module
 
     def __enter__(self):
         from vectorx_tpu_torch.circuits import succinct_header_range as shr
         from vectorx_tpu_torch.recursion import progcache
 
+        mod_v = self.module or shr
         self.reached, self.raised = False, []
-        self._saved = [(shr, "verify", shr.verify),
+        self._saved = [(mod_v, "verify", mod_v.verify),
                        (progcache, "cached_program",
                         progcache.cached_program)]
         for mod, attr, orig in self._saved:
-            def watched(*a, _orig=orig, _stark=mod is shr, **kw):
+            def watched(*a, _orig=orig, _stark=mod is mod_v, **kw):
                 self.reached = self.reached or _stark
                 try:
                     return _orig(*a, **kw)
@@ -2350,11 +2754,11 @@ class VerifyWatch:
         torch.cuda.synchronize()    # a pending device error raises here
 
 
-def rejects(what: str, verify_fn, *, stark: bool) -> None:
+def rejects(what: str, verify_fn, *, stark: bool, module=None) -> None:
     """Raise unless `verify_fn()` is False for the reason named: from the
     STARK verify (`stark`) or from the host checks before any STARK work,
-    and with nothing under the verifier raised."""
-    with VerifyWatch() as w:
+    and with nothing under the verifier raised (`VerifyWatch(module)`)."""
+    with VerifyWatch(module) as w:
         ok = verify_fn()
     if ok:
         raise AssertionError(f"accepted {what}")
@@ -2367,8 +2771,9 @@ def rejects(what: str, verify_fn, *, stark: bool) -> None:
                              f"{'by' if stark else 'before'} it")
 
 
-def succinct_timers(extra_targets):
-    """A StageTimer over the succinct prover's host stages."""
+def succinct_timers(extra_targets, module=None):
+    """A StageTimer over the succinct prover's host stages (`compile_tape`
+    as `module` imports it, by default `circuits.succinct_header_range`)."""
     from vectorx_tpu_torch.circuits import succinct_header_range as shr
     from vectorx_tpu_torch.recursion.machine import MachineAir
     from vectorx_tpu_torch.stark import prover, stages
@@ -2376,7 +2781,8 @@ def succinct_timers(extra_targets):
     from vectorx_tpu_torch.stark.sha512_air import Sha512Air
 
     return StageTimer(extra=[
-        *extra_targets, (shr, "compile_tape"), (MachineAir, "build_trace"),
+        *extra_targets, (module or shr, "compile_tape"),
+        (MachineAir, "build_trace"),
         (MachineAir, "constant_columns"), (Sha512Air, "build_trace"),
         (Ed25519LadderAir, "build_trace"), (prover, "prove_streamed"),
         (stages, "commit_streamed"), (stages, "coset_eval_rows"),
@@ -2723,41 +3129,45 @@ def main(succinct: bool) -> int:
 
 def run_main(dev, card: str, host: HostChecks, t_start: float,
              done) -> dict:
-    """Phases 3-12; returns the launches of every main path."""
+    """Phases 3-12, with 15 and 16 in the phase-11 and phase-12 processes;
+    returns the launches of every main path."""
     import numpy as np
 
     from vectorx_tpu_torch.fri.fri import FriConfig
     from vectorx_tpu_torch.stark import FibonacciAir, RangeCheckAir, StarkConfig
 
-    # phase 12 runs in its own process on the card from here on, after
-    # phase 1's kernel medians
+    # phases 12 and 11 run in processes of their own on the card from here
+    # on, after phase 1's kernel medians
     p12 = Phase12(t_start)
     try:
-        # the prover path of the first slice, five steps shallower than
-        # there (2^21 / 2^20 rows) so that the whole script fits its limit
-        cfg = StarkConfig(fri=FriConfig())
-        rng = np.random.default_rng(0)
-        values = rng.integers(0, 1 << 14, size=(8, (1 << 15) - 1),
-                              dtype=np.uint64)
-        statements = [("FibonacciAir(log_n=16)", FibonacciAir(log_n=16)),
-                      ("RangeCheckAir(log_n=15, bits=14, V=8)",
-                       RangeCheckAir(15, 14, values))]
-        reset_launches()
-        for name, air in statements:
-            prove_and_check(name, air, cfg, dev, card)
-        launches = read_launches("STARK prover")
-        log(f"phase 3: kernel launches on the STARK prover path: {launches}")
-        done(3)
-
-        phase_cuda_cpu(dev, card, host)
-        done(4)
-        phase_hashes(dev, card)
-        done(5)
-        phase_ed25519(dev, card, host)
-        done(6)
-        hr_launches, hr_proof = phase_header_range(dev, card)
-        p11 = Phase11(hr_proof, t_start)
+        p11 = Phase11(t_start)
         try:
+            # the prover path of the first slice, five steps shallower than
+            # there (2^21 / 2^20 rows) so that the whole script fits its limit
+            cfg = StarkConfig(fri=FriConfig())
+            rng = np.random.default_rng(0)
+            values = rng.integers(0, 1 << 14, size=(8, (1 << 15) - 1),
+                                  dtype=np.uint64)
+            statements = [
+                ("FibonacciAir(log_n=16)", FibonacciAir(log_n=16)),
+                ("RangeCheckAir(log_n=15, bits=14, V=8)",
+                 RangeCheckAir(15, 14, values))]
+            reset_launches()
+            for name, air in statements:
+                prove_and_check(name, air, cfg, dev, card)
+            launches = read_launches("STARK prover")
+            log(f"phase 3: kernel launches on the STARK prover path: "
+                f"{launches}")
+            done(3)
+
+            phase_cuda_cpu(dev, card, host)
+            done(4)
+            phase_hashes(dev, card)
+            done(5)
+            phase_ed25519(dev, card, host)
+            done(6)
+            hr_launches, hr_proof = phase_header_range(dev, card)
+            p11.hand_over(hr_proof)
             done(7)
             phase_identity(dev, card)
             done(8)
@@ -2766,19 +3176,22 @@ def run_main(dev, card: str, host: HostChecks, t_start: float,
             phase_services(dev, card)
             done(10)
             p11_launches = p11.finish(host, t_start)
+            done(11)
+            p12_launches = p12.finish(host, t_start)
+            done(12)
         finally:
             p11.stop()
-        done(11)
-        p12_launches = p12.finish(host, t_start)
     finally:
         p12.stop()
-    done(12)
 
     for name in launches:
         launches[name] += hr_launches[name] + rot_launches[name] + \
             p11_launches["aggregated"][name] + \
             p11_launches["public_bind"][name] + \
-            p12_launches["justification"][name]
+            p11_launches["hash_chain"]["launches"][name] + \
+            p12_launches["justification"][name] + \
+            p12_launches["fpmul"][name] + \
+            p12_launches["sha_tree"]["launches"][name]
     return launches
 
 
@@ -2811,9 +3224,10 @@ def run_phases(dev, card: str, host: HostChecks | None, t_start: float,
 
     def done(phase: int) -> None:
         now = time.perf_counter()
+        held = release_card_memory(dev)
         log(f"phase {phase}: {now - marks[-1]:.2f} s; from "
             f"{marks[-1] - t_start:.1f} to {now - t_start:.1f} s since the "
-            f"start")
+            f"start; {held / 2**30:.2f} GiB cached and free given back")
         marks.append(now)
 
     log(f"phase 0: {marks[0] - t_start:.2f} s")
@@ -2865,7 +3279,7 @@ if __name__ == "__main__":
         torch.set_num_threads(HOST_THREADS)
         if sys.argv[1] == "--host-checks":
             print(json.dumps(host_checks()), flush=True)
-            last = host_public_bind
+            last = host_card_proofs
         else:
             os.nice(JUSTIFICATION_NICE)
             last = host_justification

@@ -282,10 +282,11 @@ def test_port_imports_without_jax():
         "       'bin.header_range_512', 'bin.rotate',\n"
         "       'bin.dummy_header_range_256', 'bin.dummy_header_range_512',\n"
         "       'bin.dummy_rotate', 'bin.operator', 'bin.indexer',\n"
-        "       'bin.events', 'bin.genesis', 'bin.fill_block_range'}\n"
+        "       'bin.events', 'bin.genesis', 'bin.fill_block_range',\n"
+        "       'stark.ed25519_air', 'recursion.succinct'}\n"
         "missing = {'vectorx_tpu_torch.' + m for m in new} - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 77, names\n"
+        "assert len(names) >= 79, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -23,7 +23,9 @@ ripple over the columns), so the limbs equal the reference's limb for limb.
 Values stay semi-reduced (< 2^256) between ops; canonicalization happens
 only at equality checks.
 
-Not ported: the Pippenger `msm`, `msm_sharded` and the compile-cache guard.
+The Pippenger `msm` (and `batch_verify(method="msm")`) runs on the device
+of its point tensors, as plain torch.  Not ported: `msm_sharded`, which
+needs a process group, and the compile-cache guard.
 """
 
 from __future__ import annotations
@@ -242,6 +244,117 @@ def _reduce_points(p):
 
 
 # ---------------------------------------------------------------------------
+# Pippenger MSM — bucketed multi-scalar multiplication
+# ---------------------------------------------------------------------------
+# Σ_i [s_i]P_i via windowed buckets, in fixed-shape vector steps:
+#
+#   1. every (point i, window k) pair becomes one element keyed by
+#      key = k·2^w + digit_{i,k} — ALL windows bucket in one pass;
+#   2. one stable argsort groups equal buckets; a log-depth SEGMENTED
+#      Hillis-Steele scan with `point_add` folds each bucket's run, and the
+#      run-ends scatter into the (K, 2^w) bucket table;
+#   3. Σ_d d·B_d per window via a batched suffix scan over the bucket
+#      axis (2^w − 1 steps, each a (K,)-wide point-add);
+#   4. Horner over windows: w doublings + 1 add per window.
+#
+# Work: ~log2(NK)·NK + 2^w·K + w·K point-adds against the ladder's 2·253·N.
+
+MSM_WINDOW = 8                       # digits per window; 2^w buckets
+
+
+def _digits_host(scalars: list[int], w: int, k: int) -> np.ndarray:
+    """(N, K) little-endian w-bit digits."""
+    out = np.zeros((len(scalars), k), dtype=np.int64)
+    mask = (1 << w) - 1
+    for i, s in enumerate(scalars):
+        for j in range(k):
+            out[i, j] = (s >> (w * j)) & mask
+    return out
+
+
+def _bucket_keys(digits: np.ndarray, k: int, nb: int) -> np.ndarray:
+    """(N·K,) keys k·2^w + digit, point-major; digit-0 elements are
+    weight-0 and point at the trash slot k·2^w up front."""
+    keys = (np.arange(k, dtype=np.int64)[None, :] * nb + digits).reshape(-1)
+    return np.where(digits.reshape(-1) == 0, np.int64(k * nb), keys)
+
+
+def _point_shift(p, j):
+    """Shift points right by j along axis 0, front-filled with identity."""
+    ident = point_identity((j,), device=p[0].device)
+    return tuple(torch.cat([iv, a[:-j]], dim=0) for iv, a in zip(ident, p))
+
+
+def _segmented_bucket_sums(keys: torch.Tensor, points, n_buckets: int):
+    """Inclusive segmented scan + run-end scatter: bucket b gets the sum of
+    all points whose (sorted) key is b.  Buckets with no members hold the
+    identity."""
+    m = keys.shape[0]
+    order = torch.argsort(keys, stable=True)
+    keys = keys[order]
+    acc = tuple(a[order] for a in points)
+    j = 1
+    while j < m:
+        shifted = _point_shift(acc, j)
+        same = torch.cat([torch.zeros(j, dtype=torch.bool,
+                                      device=keys.device),
+                          keys[j:] == keys[:-j]])
+        acc = point_select(same, point_add(acc, shifted), acc)
+        j <<= 1
+    run_end = torch.cat([keys[:-1] != keys[1:],
+                         torch.ones(1, dtype=torch.bool, device=keys.device)])
+    # scatter run-end sums into the bucket table; non-run-ends go to a
+    # trash slot.  Run ends have unique keys, so only the trash slot sees
+    # duplicate indices, and only there is CUDA's index_put_
+    # nondeterministic (the slot is dropped).
+    idx = torch.where(run_end, keys, n_buckets)
+    buckets = []
+    for ident, a in zip(point_identity((n_buckets + 1,), device=keys.device),
+                        acc):
+        table = ident.clone(memory_format=torch.contiguous_format)
+        table[idx] = a
+        buckets.append(table[:n_buckets])
+    return tuple(buckets)
+
+
+def _weighted_bucket_reduce(buckets, k: int, nb: int):
+    """Per window: Σ_d d·B_d = Σ_j suffix_j where suffix_j = Σ_{d≥j} B_d.
+    One (K,)-batched point-add pair per bucket index, d = nb−1 .. 1
+    (bucket 0 is weight-0 and was keyed to trash)."""
+    seq = tuple(a.reshape(k, nb, NLIMB)[:, 1:].flip(1).transpose(0, 1)
+                for a in buckets)                          # (nb−1, K, 16)
+    suffix = total = point_identity((k,), device=buckets[0].device)
+    for d in range(nb - 1):
+        suffix = point_add(suffix, tuple(a[d] for a in seq))
+        total = point_add(total, suffix)
+    return total                                           # (K, 16) coords
+
+
+def _horner_windows(window_sums, w: int):
+    """S = Σ_k 2^{wk}·S_k, highest window first: w doublings + 1 add/step."""
+    acc = point_identity((), device=window_sums[0].device)
+    for i in reversed(range(window_sums[0].shape[0])):
+        for _ in range(w):
+            acc = point_add(acc, acc)
+        acc = point_add(acc, tuple(a[i] for a in window_sums))
+    return acc
+
+
+def msm(scalars: list[int], points, w: int = MSM_WINDOW):
+    """Pippenger MSM: Σ_i [s_i]P_i (points as 4×(N, 16) limb tensors, on
+    the device the sum runs on).  Returns one extended point (4×(16,)
+    limbs, semi-reduced)."""
+    assert len(scalars) == points[0].shape[0]
+    nbits = max(253, max((s.bit_length() for s in scalars), default=1))
+    k = (nbits + w - 1) // w
+    nb = 1 << w
+    keys = torch.from_numpy(_bucket_keys(_digits_host(scalars, w, k), k, nb))
+    flat = tuple(a.repeat_interleave(k, dim=0) for a in points)  # (N·K, 16)
+    buckets = _segmented_bucket_sums(keys.to(points[0].device), flat, k * nb)
+    return _horner_windows(_weighted_bucket_reduce(buckets, k, nb), w)
+
+
+# ---------------------------------------------------------------------------
 # batched verification
 # ---------------------------------------------------------------------------
 
@@ -249,24 +362,19 @@ def _bits_msb(x: int, width: int = 253) -> list[int]:
     return [(x >> (width - 1 - i)) & 1 for i in range(width)]
 
 
-def batch_verify(pubkeys: list[bytes], msgs: list[bytes],
-                 signatures: list[bytes],
-                 signed_mask: list[bool] | None = None, *,
-                 rng, device) -> bool:
-    """Conditional batched verification (curta_eddsa_verify_sigs_conditional
-    semantics): signatures where mask is False are skipped; returns True
-    iff every masked-in signature verifies.
-
-    `rng` draws the 128-bit randomizers z_i (`rng.getrandbits(128)`, e.g.
-    a seeded `random.Random` in tests or `secrets.SystemRandom()` in a
-    verifier); the ladder and the reduction run on `device`."""
+def batch_terms(pubkeys: list[bytes], msgs: list[bytes],
+                signatures: list[bytes], signed_mask: list[bool] | None = None,
+                *, rng):
+    """The aggregate equation's (scalars, points) over the masked-in
+    signatures, host-side: [z_i·h_i](−A_i), [z_i](−R_i) and
+    [Σ z_i·s_i]B, whose sum is the identity iff every one verifies
+    (with overwhelming probability over the z_i).  None if a signature
+    does not parse; empty lists if none is masked in."""
     n = len(pubkeys)
     signed_mask = signed_mask or [True] * n
     idxs = [i for i in range(n) if signed_mask[i]]
     if not idxs:
-        return True
-
-    # host-side parsing / hashing (tiny)
+        return [], []
     scalars: list[int] = []
     points: list[tuple] = []
     agg_sB = 0
@@ -275,7 +383,7 @@ def batch_verify(pubkeys: list[bytes], msgs: list[bytes],
         R = host.point_decompress(signatures[i][:32])
         s = int.from_bytes(signatures[i][32:], "little")
         if A is None or R is None or s >= L:
-            return False
+            return None
         z = rng.getrandbits(128) | 1
         h = int.from_bytes(hashlib.sha512(
             signatures[i][:32] + pubkeys[i] + msgs[i]).digest(),
@@ -290,9 +398,33 @@ def batch_verify(pubkeys: list[bytes], msgs: list[bytes],
     # negate the A_i and R_i terms: [zh](-A) and [z](-R)
     points = [((Q - x) % Q, y, zc, (Q - t) % Q)
               for (x, y, zc, t) in points[:-1]] + [points[-1]]
+    return scalars, points
 
+
+def batch_verify(pubkeys: list[bytes], msgs: list[bytes],
+                 signatures: list[bytes],
+                 signed_mask: list[bool] | None = None, *,
+                 rng, device, method: str = "ladder") -> bool:
+    """Conditional batched verification (curta_eddsa_verify_sigs_conditional
+    semantics): signatures where mask is False are skipped; returns True
+    iff every masked-in signature verifies.
+
+    `rng` draws the 128-bit randomizers z_i (`rng.getrandbits(128)`, e.g.
+    a seeded `random.Random` in tests or `secrets.SystemRandom()` in a
+    verifier); the curve work runs on `device`.  `method`: "msm" sums the
+    2n+1 points with the Pippenger bucket pipeline at `MSM_WINDOW`; any
+    other value runs one batched double-and-add ladder and a reduction."""
+    terms = batch_terms(pubkeys, msgs, signatures, signed_mask, rng=rng)
+    if terms is None:
+        return False
+    scalars, points = terms
+    if not scalars:
+        return True
     pts = tuple(from_ints([p[c] for p in points], device=device)
                 for c in range(4))
+    if method == "msm":
+        total = msm(scalars, pts, MSM_WINDOW)
+        return bool(is_identity(tuple(a[None, :] for a in total))[0])
     bits = torch.from_numpy(
         np.array([_bits_msb(s) for s in scalars], dtype=np.int64)).to(device)
     total = _reduce_points(scalar_mult_batched(bits, pts))

@@ -1,7 +1,7 @@
 """Recursive proof aggregation on the port: the STARK verifier of many
 child proofs replayed inside ONE wide trace — a row-programmed "verifier
 VM" whose constraints are stacked device ops.  Port of
-`vectorx_tpu.recursion` (without `succinct`).
+`vectorx_tpu.recursion`.
 
 Modules:
 * `ssa`       — the op tape: symbolic values, Poseidon duplexes, bit
@@ -15,6 +15,9 @@ Modules:
 * `progcache` — content-addressed statement-mode programs.
 * `aggregate` — N child proofs -> ONE machine proof; the verifier
                 re-derives the program from the child statements.
+* `succinct`  — child proofs wired inside ONE machine proof: a SHA-256
+                Merkle tree (leaves and root public) and a Blake2b hash
+                chain (trusted and final hash public).
 """
 
 from vectorx_tpu_torch.recursion.ssa import Builder
