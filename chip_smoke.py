@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`vectorx_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # phases 0-12, 15 and 16
+    python3 chip_smoke.py               # phases 0-12 and 15-17
     python3 chip_smoke.py --succinct    # phases 0-2, 13 and 14
 
 Phases, each printed with its result and timing; any failed check raises,
@@ -57,9 +57,12 @@ so the script exits non-zero and prints no final line:
    tampered SHA chunk proof are rejected, and a tampered output with the
    same proof reverts the commit; every kernel must have launched on the
    gateway path.
-8. the tree=2 ZK statement of the tests at their small config: every
+8. in phase 11's process (below), after phase 16's hash chain: the
+   tree=2 ZK statement of the tests at their small config: every
    component proof's JSON on CUDA identical to the JAX reference's proof
    of the same statement (the golden fixtures under `tests/fixtures/`).
+   It left the parent's phases in PR 11, whose critical path it
+   lengthened by 81-111 s while phase 11's process had room.
 9. the rotate through the port's contract and gateway at 300 authorities
    (`request_rotate`, `fulfill_next`: the stored next-set hash equals
    `DummyRotate`'s); then the aggregated ZK rotate at `StarkConfig()`:
@@ -79,8 +82,9 @@ so the script exits non-zero and prints no final line:
    `VECTORX_DEVICE=cuda` and no visible CUDA device exits non-zero (that
    process runs beside the operator loop: it uses no card).
 11. in a second process on the card (`--phase-11 <dir>`), started after
-   phase 2, which first runs phase 16's hash chain (below) beside phases
-   3-7 and then, once phase 7 hands over its proof, beside phases 8-10:
+   phase 2, which first runs phase 16's hash chain (below) and phase 8
+   beside phases 3-7 and then, once phase 7 hands over its proof, beside
+   phases 9-10:
    phase 7's component proofs folded into one machine proof by
    `aggregate_header_range_proof` (at `StarkConfig(fri=FriConfig())`),
    with its stage times, peak device memory and launches;
@@ -131,6 +135,37 @@ so the script exits non-zero and prints no final line:
    root; a wrong final and a wrong trusted hash), each by the STARK
    verify and with nothing raised under the verifier's catch-all
    (`VerifyWatch`).
+17. the sharded paths (`vectorx_tpu_torch.parallel`), in phase 12's
+   process after phase 16's SHA tree: two rank processes on the card
+   (`python3 chip_smoke.py --phase-17 <dir> <rank>`), joined by gloo
+   through a `file://` rendezvous in `<dir>`, each rank computing on CUDA
+   and exchanging through explicit host copies (`Mesh.transport` "gloo
+   via host copies"): `four_step_ntt` at N = 2^24 (R = C = 2^12), forward
+   and inverse, equal to the single-device K1/K2 transform in transposed
+   digit order, and at 2^12 equal to the plain torch transform, with one
+   all_to_all per call, its time beside `comm_model.four_step_comm` at the
+   measured host-copy rate; the sharded prover step (2 traces of 8 x 2^14
+   a rank, LDE 2^17) equal to one rank's unsharded roots and checksum;
+   `prove_sharded` of FibonacciAir(14) at `StarkConfig(fri=FriConfig())`
+   (cut from the production statements' 2^20 rows and up), resumed from
+   the checkpoint store; `msm_sharded` of phase 6's 481 terms at window
+   8; `HeaderRangeJob` at the header_range_256 widths (300 authorities,
+   35,840 B headers, phase 7's header mix) with its 256 headers cut to 64
+   (8 leaves: a leaf's 280 fixed Blake2b compressions took 32.1 s for 16
+   leaves a worker), the two ranks splitting `run_map_stage` over one
+   store directory and rank 0's `run` equal to `DummyHeaderRange(64)`
+   with every leaf read from the store.  Beside the ranks, phase 12's
+   process proves the same statement unsharded on the card and runs
+   `msm` on the same terms: the sharded proof's JSON must equal the
+   unsharded proof's byte for byte, and `verify` accept it; both ranks'
+   MSM must equal `msm` in affine form.  Beside them too run a probe of
+   whether NCCL accepts two ranks on the one card (two processes,
+   `--phase-17-nccl <dir> <rank>`, one all_reduce; the outcome is
+   printed, the phase uses gloo either way) and
+   `entry.dryrun_multichip(2, backend="gloo", device="cuda")`.  K1 and K2
+   must have launched on the sharded paths; their launches, summed over
+   the ranks, join the kernels line.  The ranks are killed and the script
+   fails if one fails or the phase passes `P17_DEADLINE_S`.
 
 With `--succinct` the script runs phases 0-2 and then, instead of phases
 3-12, 15 and 16, the succinct product pipeline (each statement takes
@@ -1985,10 +2020,10 @@ def phase_public_bind(dev, card: str, zk, cfg, out_dir: str) -> dict:
 
 
 def phase11_child(path: str) -> dict:
-    """`chip_smoke.py --phase-11 <dir>`: phase 16's hash chain on the card,
-    then phase 11 from phase 7's proof, once the parent has handed it over
-    in `<dir>`; returns the launches and the process's seconds (imports
-    included) for the last line."""
+    """`chip_smoke.py --phase-11 <dir>`: phase 16's hash chain and phase 8
+    on the card, then phase 11 from phase 7's proof, once the parent has
+    handed it over in `<dir>`; returns the launches and the process's
+    seconds (imports included) for the last line."""
     t_start = time.perf_counter()
     import torch
 
@@ -2005,6 +2040,11 @@ def phase11_child(path: str) -> dict:
     chain = phase_hash_chain(dev, card, cfg, path)
     log(f"phase 16: hash chain {time.perf_counter() - t_start:.2f} s since "
         f"the phase-11 process started; "
+        f"{release_card_memory(dev) / 2**30:.2f} GiB given back")
+    t0 = time.perf_counter()
+    phase_identity(dev, card)
+    log(f"phase 8: {time.perf_counter() - t0:.2f} s in the phase-11 process, "
+        f"to {time.perf_counter() - t_start:.2f} s since it started; "
         f"{release_card_memory(dev) / 2**30:.2f} GiB given back")
     t0 = time.perf_counter()
     proof_path = os.path.join(path, "header_range.json")
@@ -2104,11 +2144,11 @@ def _time_left(t_start: float) -> float:
 
 class Phase11(CardPhase):
     """Phase 11's process, started after phase 2: phase 16's hash chain
-    beside phases 3-7, then phase 11 beside phases 8-10, from the proof
-    that phase 7 hands over."""
+    and phase 8 beside phases 3-7, then phase 11 beside phases 9-10, from
+    the proof that phase 7 hands over."""
 
     def __init__(self, t_start: float):
-        super().__init__(11, t_start, "phases 3-10")
+        super().__init__(11, t_start, "phases 3-7, 9 and 10")
 
     def hand_over(self, proof) -> None:
         """Give the process phase 7's proof (written whole, then renamed
@@ -2406,9 +2446,15 @@ def phase12_child(path: str) -> dict:
     t0 = time.perf_counter()
     tree = phase_sha_tree(dev, card, cfg, path)
     log(f"phase 16: SHA tree {time.perf_counter() - t0:.2f} s in the "
-        f"phase-12 process")
+        f"phase-12 process; {release_card_memory(dev) / 2**30:.2f} GiB "
+        f"given back")
+    t0 = time.perf_counter()
+    sharded = phase_sharded(dev, card, path)
+    log(f"phase 17: {time.perf_counter() - t0:.2f} s in the phase-12 "
+        f"process, from {t0 - t_start:.1f} to "
+        f"{time.perf_counter() - t_start:.1f} s since it started")
     return {"justification": launches, "fpmul": fpmul, "sha_tree": tree,
-            "seconds": time.perf_counter() - t_start}
+            "phase17": sharded, "seconds": time.perf_counter() - t_start}
 
 
 class Phase12(CardPhase):
@@ -3084,6 +3130,463 @@ class SuccinctPhase(CardPhase):
         return {"VECTORX_VK_CACHE": os.path.join(self.dir, "vk")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded paths, as two rank processes started from phase 12's
+# ---------------------------------------------------------------------------
+
+P17_WORLD = 2
+# the whole phase (the ranks, then the NCCL probe beside the dry run) ends
+# by this many seconds after its start, or the script fails
+P17_DEADLINE_S = 240
+P17_PROBE_S = 60
+# the shapes: the four-step's sides (2^12: N = 2^24, the succinct machines'
+# LDE; 2^6: small enough for the plain transform), the prover step's trace
+# length (LDE 2^17, so K2 runs), FibonacciAir's log_n (cut from the
+# production statements' 2^20 and up to fit the phase's minute), and
+# header_range_256's headers per proof, authorities and header bytes bound
+# — its 256 headers cut to 64 (8 leaves): a leaf's 280 fixed Blake2b
+# compressions (ROADMAP B5) took 32.1 s for 16 leaves a worker alone
+P17_SIDES = (12, 6)
+P17_STEP_LOG_N = 14
+P17_FIB_LOG_N = 14
+HR256 = (64, 300, 35840)
+
+
+def p17_four_step(mesh, say, card: str) -> dict:
+    """`four_step_ntt` at N = 2^24 (R = C = 2^12), forward and inverse, each
+    equal to the single-device K1/K2 transform of the same polynomial read
+    in transposed digit order; at R = C = 2^6 equal to the plain torch
+    transform; the all_to_all timed beside the comm model.  Returns the
+    launches of the two 2^24 transforms."""
+    import numpy as np
+    import torch
+
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.parallel.comm_model import (collective_counts,
+                                                       four_step_comm)
+    from vectorx_tpu_torch.parallel.ntt_sharded import four_step_ntt
+
+    dev, p, r = mesh.device, mesh.world, mesh.rank
+    launches = dict.fromkeys(cuda_ntt.LAUNCHES, 0)
+    checks = []
+    for log_side in P17_SIDES:
+        R = C = 1 << log_side
+        x = np.random.default_rng(17 + log_side).integers(
+            0, gl.P, size=(R, C), dtype=np.uint64)
+        slab = gl.from_u64(x[:, r * C // p:(r + 1) * C // p], dev)
+        flat = gl.from_u64(x.reshape(-1), dev)
+        for inverse in (False, True):
+            reset_launches()
+            mesh.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = four_step_ntt(slab, mesh, inverse=inverse)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = collective_counts(mesh)
+            if counts != {"all_to_all": 1, "all_gather": 0, "all_reduce": 0}:
+                raise AssertionError(f"four_step_ntt ran {counts}")
+            if log_side == P17_SIDES[0]:
+                got = read_launches("four-step NTT", need=["ntt_tile"])
+                for name, n in got.items():
+                    launches[name] += n
+                want = cuda_ntt.transform(flat, 2 * log_side, inverse)
+                what = "the single-device K1/K2 transform"
+            else:
+                want = cuda_ntt.transform_plain(flat, 2 * log_side, inverse)
+                what = "the plain torch transform"
+            # X[k1 + R·k2] sits at [k1, k2]: this rank's rows k1
+            want = want.reshape(C, R).T[r * R // p:(r + 1) * R // p]
+            if not torch.equal(gl.canonicalize(out), gl.canonicalize(want)):
+                raise AssertionError(f"four_step_ntt 2^{2 * log_side} "
+                                     f"(inverse={inverse}) != {what}")
+            checks.append(f"2^{2 * log_side} {'inverse' if inverse else 'forward'}"
+                          f" {secs * 1e3:.2f} ms == {what}")
+    say(f"phase 17: four_step_ntt over {p} ranks on the card, "
+        f"{mesh.transport}: " + "; ".join(checks) + f"  [{card}]")
+    # the one exchange alone, and the host round trip that carries it
+    R = 1 << P17_SIDES[0]
+    y = gl.from_u64(np.random.default_rng(5).integers(
+        0, gl.P, size=(R // p, R), dtype=np.uint64), dev)
+    ms = cuda_ms(lambda: mesh.all_to_all(y, split_dim=1, concat_dim=0), 3)
+    model0 = four_step_comm(R * R, p, 1.0)
+    egress = torch.empty(model0.egress_bytes_per_device // 8,
+                         dtype=torch.int64, device=dev)
+    copy_ms = cuda_ms(lambda: egress.cpu().to(dev), 3)
+    gbps = model0.egress_bytes_per_device / (copy_ms * 1e-3) / 1e9
+    model = four_step_comm(R * R, p, gbps)
+    lg = 2 * P17_SIDES[0]
+    say(f"phase 17: the all_to_all of a 2^{lg} four-step ({mesh.transport}): "
+        f"{ms:.2f} ms median of 3; comm_model.four_step_comm(2^{lg}, {p}, "
+        f"{gbps:.2f} GB/s) = {model.egress_bytes_per_device} B egress per "
+        f"rank, floor {model.transfer_floor_s * 1e3:.2f} ms (the rate: a "
+        f"device->host->device copy of the egress, {copy_ms:.2f} ms)  "
+        f"[{card}]")
+    return {"launches": launches, "all_to_all_ms": ms, "copy_gbps": gbps,
+            "floor_ms": model.transfer_floor_s * 1e3}
+
+
+def p17_prover_step(mesh, say, card: str) -> dict:
+    """The sharded prover step at B = 2 traces per rank, W = 8, n = 2^14
+    (LDE 2^17: K1 and K2): roots and checksum equal to one rank's
+    unsharded computation of all the traces."""
+    import numpy as np
+    import torch
+
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.parallel.mesh import shard_batch
+    from vectorx_tpu_torch.parallel.prover_step import (
+        local_roots, make_sharded_prover_step)
+
+    dev, p = mesh.device, mesh.world
+    B, W, n = 2 * p, 8, 1 << P17_STEP_LOG_N
+    traces = np.random.default_rng(71).integers(0, gl.P, size=(B, W, n),
+                                                dtype=np.uint64)
+    mine = gl.from_u64(traces[shard_batch(mesh, B)], dev)
+    step = make_sharded_prover_step(mesh)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roots, check = step(mine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches("sharded prover step")
+    want = local_roots(gl.from_u64(traces, dev))
+    want_check = int((want & 0xFFFFFFFF).sum()) & 0xFFFFFFFF
+    if not torch.equal(roots, want) or check != want_check:
+        raise AssertionError("sharded prover step != the unsharded roots")
+    say(f"phase 17: sharded prover step, {B} traces x {W} columns x "
+        f"2^{P17_STEP_LOG_N} (LDE 2^{P17_STEP_LOG_N + 3}) over {p} ranks: "
+        f"{secs:.3f} s; roots and checksum "
+        f"{check} == one rank's unsharded computation; launches {launches}"
+        f"  [{card}]")
+    return {"launches": launches, "seconds": secs}
+
+
+def p17_statement():
+    """Phase 17's STARK statement and config."""
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.stark import FibonacciAir, StarkConfig
+
+    return (FibonacciAir(log_n=P17_FIB_LOG_N),
+            StarkConfig(fri=FriConfig()))
+
+
+def p17_prove(mesh, path: str, say, card: str) -> dict:
+    """`prove_sharded` of FibonacciAir(14) at `StarkConfig(fri=FriConfig())`,
+    then resumed from the checkpoint store; rank 0 writes the proof JSON
+    to `<dir>/sharded_proof.json` (`p17_references` holds it against the
+    unsharded card proof)."""
+    import torch
+
+    from vectorx_tpu_torch.parallel.scheduler import CheckpointStore
+    from vectorx_tpu_torch.parallel.sharded_prove import (proof_to_json,
+                                                          prove_sharded)
+
+    air, cfg = p17_statement()
+    trace = air.build_trace()
+    store_dir = os.path.join(path, "store")
+    reset_launches()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    proof, hit = prove_sharded(air, trace, cfg, mesh,
+                               store=CheckpointStore(store_dir), job="fib")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches("sharded prove")
+    counts = dict(mesh.counts)
+    text = json.dumps(proof_to_json(proof))
+    if hit:
+        raise AssertionError("prove_sharded hit an empty store")
+    t0 = time.perf_counter()
+    again, hit2 = prove_sharded(air, trace, cfg, mesh,
+                                store=CheckpointStore(store_dir), job="fib")
+    if not hit2 or json.dumps(proof_to_json(again)) != text:
+        raise AssertionError("prove_sharded did not resume from the store")
+    if mesh.rank == 0:
+        with open(os.path.join(path, "sharded_proof.json"), "w") as f:
+            f.write(text)
+    say(f"phase 17: prove_sharded(FibonacciAir({P17_FIB_LOG_N}), "
+        f"FriConfig()) over {mesh.world} ranks: {secs:.3f} s, "
+        f"{len(text)} bytes of proof JSON; resumed from the store in "
+        f"{time.perf_counter() - t0:.3f} s; collectives {counts}; launches "
+        f"{launches}  [{card}]")
+    return {"launches": launches, "seconds": secs, "collectives": counts}
+
+
+def p17_msm_terms(device):
+    """Phase 6's forged set's 481 terms, the points on `device`."""
+    from vectorx_tpu_torch.curves import ed25519_batch as eb
+
+    pks, msgs, _, mask, forged = ed25519_batch()
+    scalars, points = eb.batch_terms(pks, msgs, forged, mask,
+                                     rng=random.Random(7))
+    return scalars, tuple(eb.from_ints([q[c] for q in points],
+                                       device=device) for c in range(4))
+
+
+def p17_affine(pt) -> list[str]:
+    """An extended point's affine (x, y), as decimal strings."""
+    from vectorx_tpu_torch.curves import ed25519 as ed
+    from vectorx_tpu_torch.curves import ed25519_batch as eb
+
+    x, y, z, _ = [eb.to_ints(a[None, :])[0] for a in pt]
+    zi = pow(z, ed.Q - 2, ed.Q)
+    return [str(x * zi % ed.Q), str(y * zi % ed.Q)]
+
+
+def p17_msm(mesh, say, card: str) -> dict:
+    """`msm_sharded` of phase 6's 481 terms at window 8 (`p17_references`
+    holds it against `msm`)."""
+    import torch
+
+    from vectorx_tpu_torch.curves import ed25519_batch as eb
+
+    scalars, pts = p17_msm_terms(mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = p17_affine(eb.msm_sharded(mesh, scalars, pts, w=8))
+    secs = time.perf_counter() - t0
+    say(f"phase 17: msm_sharded of phase 6's {len(scalars)} terms, w=8, "
+        f"over {mesh.world} ranks: {secs:.3f} s  [{card}]")
+    return {"seconds": secs, "affine": got}
+
+
+def p17_references(dev, card: str) -> dict:
+    """The one-device results phase 17's ranks are held against, computed
+    in phase 12's process while they run: FibonacciAir(14)'s proof by
+    `prove` on the card, and `msm` of phase 6's 481 terms."""
+    import torch
+
+    from vectorx_tpu_torch.curves import ed25519_batch as eb
+    from vectorx_tpu_torch.parallel.sharded_prove import proof_to_json
+    from vectorx_tpu_torch.stark import prove
+
+    air, cfg = p17_statement()
+    t0 = time.perf_counter()
+    proof = prove(air, air.build_trace(), cfg, device=dev)
+    torch.cuda.synchronize()
+    res = {"proof": json.dumps(proof_to_json(proof)),
+           "prove_seconds": time.perf_counter() - t0}
+    scalars, pts = p17_msm_terms(dev)
+    t0 = time.perf_counter()
+    res["msm"] = p17_affine(eb.msm(scalars, pts, 8))
+    res["msm_seconds"] = time.perf_counter() - t0
+    return res
+
+
+def p17_scheduler(mesh, path: str, say, card: str) -> dict:
+    """`HeaderRangeJob` at the header_range_256 widths, phase 7's header
+    mix: each rank a worker of `run_map_stage` over one store directory,
+    then worker 0's `run` == the dummy's output with every leaf read from
+    the store (64 of the deployment's 256 headers: `HR256`)."""
+    import torch
+
+    from vectorx_tpu_torch.circuits import DummyHeaderRange
+    from vectorx_tpu_torch.hash.sha256 import chained_hash
+    from vectorx_tpu_torch.io.abi import HeaderRangeInput
+    from vectorx_tpu_torch.parallel.scheduler import (CheckpointStore,
+                                                      HeaderRangeJob)
+
+    headers, auth, max_header = HR256
+    chain, trusted, target = header_range_chain(headers, auth)
+    inp = HeaderRangeInput(trusted, chain.get_block_hash(trusted), 1,
+                           chained_hash(chain.era_pubkeys(1)),
+                           target).encode()
+    store_dir = os.path.join(path, "jobs")
+
+    def job(worker: int):
+        return HeaderRangeJob(chain, inp, max_num_headers=headers,
+                              max_header_size=max_header,
+                              max_authority_set_size=auth,
+                              store=CheckpointStore(store_dir),
+                              worker_id=worker, n_workers=mesh.world,
+                              device=mesh.device)
+
+    t0 = time.perf_counter()
+    mine = job(mesh.rank).run_map_stage()
+    secs = time.perf_counter() - t0
+    # every worker's leaves are in the store before worker 0 reduces
+    mesh.all_reduce_sum(torch.ones(1, dtype=torch.int64, device=mesh.device))
+    res = {"map_seconds": secs, "leaves": len(mine)}
+    if mesh.rank == 0:
+        fin = job(0)
+        t0 = time.perf_counter()
+        out = fin.run()
+        res["run_seconds"] = time.perf_counter() - t0
+        if out != DummyHeaderRange(headers).run(inp, chain):
+            raise AssertionError("HeaderRangeJob output != DummyHeaderRange")
+        if fin.stats.cached != fin.num_leaves:
+            raise AssertionError(f"{fin.stats.cached} stages cached at the "
+                                 f"reduce, not the {fin.num_leaves} leaves")
+        say(f"phase 17: HeaderRangeJob at header_range_256's widths ("
+            f"{headers} of its 256 headers, {fin.num_leaves} leaves, {auth} "
+            f"authorities, "
+            f"{max_header} B headers): {len(mine)} leaves on this worker in "
+            f"{secs:.2f} s; worker 0's run {res['run_seconds']:.2f} s with "
+            f"all {fin.stats.cached} leaves from the store, output == "
+            f"DummyHeaderRange({headers})  [{card}]")
+    return res
+
+
+def phase17_rank(path: str, rank: int) -> dict:
+    """`chip_smoke.py --phase-17 <dir> <rank>`: one rank of phase 17 on the
+    card, joined to the other by gloo through `<dir>/rendezvous`; rank 0
+    prints the lines.  Returns the launches of each path."""
+    t_start = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.parallel.mesh import make_mesh
+    from vectorx_tpu_torch.parallel.scheduler import init_distributed
+
+    init_distributed(f"file://{os.path.join(path, 'rendezvous')}",
+                     P17_WORLD, rank, "gloo")
+    try:
+        mesh = make_mesh(P17_WORLD, device="cuda")
+        torch.cuda.set_device(mesh.device)
+        cuda_ntt.load()
+        card = card_line()
+        say = log if rank == 0 else (lambda msg: None)
+        say(f"phase 17: rank processes up in {time.perf_counter() - t_start:.2f}"
+            f" s; transport {mesh.transport}")
+        res = {"four_step": p17_four_step(mesh, say, card),
+               "prover_step": p17_prover_step(mesh, say, card),
+               "msm": p17_msm(mesh, say, card),
+               "prove": p17_prove(mesh, path, say, card),
+               "scheduler": p17_scheduler(mesh, path, say, card)}
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
+def nccl_probe_rank(path: str, rank: int) -> None:
+    """`chip_smoke.py --phase-17-nccl <dir> <rank>`: join an NCCL group of
+    two ranks on the one card and sum one tensor."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        path, "nccl_rendezvous"), world_size=2, rank=rank)
+    try:
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        log(f"sum {t.item()}")
+    finally:
+        dist.destroy_process_group()
+
+
+NCCL_REFUSALS = ("Duplicate GPU", "ncclInvalidUsage", "NCCL error")
+
+
+def nccl_probe(path: str) -> str:
+    """Whether NCCL accepts two ranks on one card: the outcome of one
+    all_reduce in two processes, as a line.  A rank that fails without an
+    NCCL error, or is killed at the time limit, leaves it inconclusive."""
+    from vectorx_tpu_torch.parallel.mesh import run_ranks
+
+    argv = [[sys.executable, os.path.abspath(__file__), "--phase-17-nccl",
+             path, str(r)] for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks(argv, timeout=P17_PROBE_S)
+    except RuntimeError as e:
+        took = time.perf_counter() - t0
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        why = next((ln for key in NCCL_REFUSALS for ln in lines
+                    if key in ln), None)
+        if why is not None and "killed after" not in lines[0]:
+            return f"refused in {took:.1f} s: {why[:300]}"
+        return (f"inconclusive in {took:.1f} s: {lines[0]}; "
+                f"{(lines[-1] if len(lines) > 1 else 'no output')[:300]}")
+    return (f"accepted in {time.perf_counter() - t0:.1f} s: "
+            f"{outs[0].strip().splitlines()[-1]}")
+
+
+def p17_check_references(dev, card: str, d: str, ranks, refs) -> None:
+    """The ranks' sharded proof JSON == the unsharded card proof's, and
+    `verify` accepts it; both ranks' `msm_sharded` == `msm`."""
+    from vectorx_tpu_torch.parallel.sharded_prove import proof_from_json
+    from vectorx_tpu_torch.stark import verify
+
+    with open(os.path.join(d, "sharded_proof.json")) as f:
+        text = f.read()
+    if text != refs["proof"]:
+        raise AssertionError("the sharded FibonacciAir proof JSON != the "
+                             "unsharded card proof's")
+    air, cfg = p17_statement()
+    t0 = time.perf_counter()
+    if not verify(air, proof_from_json(json.loads(text)), cfg, device=dev):
+        raise AssertionError("verify rejected the sharded proof")
+    log(f"phase 17: the sharded FibonacciAir({P17_FIB_LOG_N}) proof JSON == "
+        f"the unsharded card proof's (one device: "
+        f"{refs['prove_seconds']:.3f} s, beside the ranks); verify accepts "
+        f"it ({time.perf_counter() - t0:.3f} s)  [{card}]")
+    for res in ranks:
+        if res["msm"]["affine"] != refs["msm"]:
+            raise AssertionError("msm_sharded != msm")
+    log(f"phase 17: both ranks' msm_sharded == msm of the same terms in "
+        f"affine form (msm on one device: {refs['msm_seconds']:.3f} s, "
+        f"beside the ranks)  [{card}]")
+
+
+def phase_sharded(dev, card: str, path: str) -> dict:
+    """Phase 17, in phase 12's process: the two rank processes, and beside
+    them the NCCL probe, `dryrun_multichip(2)` and the one-device
+    references on the card.  Returns the launches of its main paths,
+    summed over the ranks and the dry run's."""
+    import concurrent.futures
+
+    from vectorx_tpu_torch.entry import dryrun_multichip
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.parallel.mesh import run_ranks
+
+    d = os.path.join(path, "phase17")
+    os.makedirs(d, exist_ok=True)
+    argv = [[sys.executable, os.path.abspath(__file__), "--phase-17", d,
+             str(r)] for r in range(P17_WORLD)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        ranks = pool.submit(run_ranks, argv, timeout=P17_DEADLINE_S)
+        # the probe, the dry run and the one-device references are small:
+        # beside the ranks
+        probe = pool.submit(nccl_probe, d)
+        dry = pool.submit(dryrun_multichip, P17_WORLD, backend="gloo",
+                          device="cuda", timeout=P17_DEADLINE_S)
+        refs = p17_references(dev, card)
+        t0 = time.perf_counter()
+        outs = ranks.result()
+        probe, dr = probe.result(), dry.result()
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("phase 17:"):
+                log(line)
+    ranks = [json.loads(next(ln for ln in reversed(o.splitlines())
+                             if ln.startswith('{"phase 17"')))["phase 17"]
+             for o in outs]
+    p17_check_references(dev, card, d, ranks, refs)
+    launches = dict.fromkeys(cuda_ntt.LAUNCHES, 0)
+    for res in ranks:
+        for path_name in ("four_step", "prover_step", "prove"):
+            for name, n in res[path_name]["launches"].items():
+                launches[name] += n
+    for name, n in dr["launches"].items():
+        launches[name] += n
+    log(f"phase 17: NCCL with two ranks on one card: {probe}; the phase "
+        f"uses gloo via host copies")
+    log(f"phase 17: dryrun_multichip(2, backend='gloo', device='cuda'): "
+        f"prover step, four-step NTT, sharded FibonacciAir(5) proved, "
+        f"verified and resumed on both ranks; checksum {dr['checksum']}; "
+        f"waited {time.perf_counter() - t0:.2f} s for the ranks, it and the "
+        f"probe after the references  [{card}]")
+    log(f"phase 17: kernel launches on its paths, both ranks: {launches}")
+    return {"launches": launches, "ranks": ranks}
+
+
 def main(succinct: bool) -> int:
     import torch
 
@@ -3129,8 +3632,9 @@ def main(succinct: bool) -> int:
 
 def run_main(dev, card: str, host: HostChecks, t_start: float,
              done) -> dict:
-    """Phases 3-12, with 15 and 16 in the phase-11 and phase-12 processes;
-    returns the launches of every main path."""
+    """Phases 3-12 and 15-17, with 8, 11 and the hash chain in the
+    phase-11 process and 12, 15, the SHA tree and 17 in the phase-12
+    process; returns the launches of every main path."""
     import numpy as np
 
     from vectorx_tpu_torch.fri.fri import FriConfig
@@ -3169,8 +3673,7 @@ def run_main(dev, card: str, host: HostChecks, t_start: float,
             hr_launches, hr_proof = phase_header_range(dev, card)
             p11.hand_over(hr_proof)
             done(7)
-            phase_identity(dev, card)
-            done(8)
+            # phase 8 runs in phase 11's process
             rot_launches = phase_rotate(dev, card)
             done(9)
             phase_services(dev, card)
@@ -3191,7 +3694,8 @@ def run_main(dev, card: str, host: HostChecks, t_start: float,
             p11_launches["hash_chain"]["launches"][name] + \
             p12_launches["justification"][name] + \
             p12_launches["fpmul"][name] + \
-            p12_launches["sha_tree"]["launches"][name]
+            p12_launches["sha_tree"]["launches"][name] + \
+            p12_launches["phase17"]["launches"][name]
     return launches
 
 
@@ -3285,6 +3789,13 @@ if __name__ == "__main__":
             last = host_justification
         print(json.dumps({"seconds": last(sys.argv[2]), "t1": time.time()}),
               flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-17"] and len(sys.argv) == 4:
+        res = phase17_rank(sys.argv[2], int(sys.argv[3]))
+        print(json.dumps({"phase 17": res}), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-17-nccl"] and len(sys.argv) == 4:
+        nccl_probe_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     children = {"--phase-11": phase11_child, "--phase-12": phase12_child,
                 "--phase-13": functools.partial(succinct_child, 13),

@@ -24,8 +24,8 @@ Values stay semi-reduced (< 2^256) between ops; canonicalization happens
 only at equality checks.
 
 The Pippenger `msm` (and `batch_verify(method="msm")`) runs on the device
-of its point tensors, as plain torch.  Not ported: `msm_sharded`, which
-needs a process group, and the compile-cache guard.
+of its point tensors, as plain torch; `msm_sharded` splits its points over
+the ranks of a `parallel.mesh.Mesh`.  Not ported: the compile-cache guard.
 """
 
 from __future__ import annotations
@@ -340,6 +340,16 @@ def _horner_windows(window_sums, w: int):
     return acc
 
 
+def _window_sums(scalars: list[int], points, w: int, k: int):
+    """The K window sums S_k of Σ_i [s_i]P_i (steps 1-3): digits, bucket
+    keys, segmented bucket sums, the weighted reduce; 4×(K, 16) limbs."""
+    nb = 1 << w
+    keys = torch.from_numpy(_bucket_keys(_digits_host(scalars, w, k), k, nb))
+    flat = tuple(a.repeat_interleave(k, dim=0) for a in points)  # (N·K, 16)
+    buckets = _segmented_bucket_sums(keys.to(points[0].device), flat, k * nb)
+    return _weighted_bucket_reduce(buckets, k, nb)
+
+
 def msm(scalars: list[int], points, w: int = MSM_WINDOW):
     """Pippenger MSM: Σ_i [s_i]P_i (points as 4×(N, 16) limb tensors, on
     the device the sum runs on).  Returns one extended point (4×(16,)
@@ -347,11 +357,36 @@ def msm(scalars: list[int], points, w: int = MSM_WINDOW):
     assert len(scalars) == points[0].shape[0]
     nbits = max(253, max((s.bit_length() for s in scalars), default=1))
     k = (nbits + w - 1) // w
-    nb = 1 << w
-    keys = torch.from_numpy(_bucket_keys(_digits_host(scalars, w, k), k, nb))
-    flat = tuple(a.repeat_interleave(k, dim=0) for a in points)  # (N·K, 16)
-    buckets = _segmented_bucket_sums(keys.to(points[0].device), flat, k * nb)
-    return _horner_windows(_weighted_bucket_reduce(buckets, k, nb), w)
+    return _horner_windows(_window_sums(scalars, points, w, k), w)
+
+
+def msm_sharded(mesh, scalars: list[int], points, w: int = MSM_WINDOW):
+    """Per-rank bucket sharding: each rank Pippenger-reduces its block of
+    the points (digit → bucket → window sums locally), the (K, 16)-limb
+    window sums of all four coordinates are gathered in ONE all_gather, and
+    the fold over the ranks (in rank order) and Horner run on every rank —
+    point addition is not componentwise, so the combine is a gather and a
+    fold rather than a sum.  `points` are every rank's same 4×(N, 16)
+    tensors on `mesh.device`; returns one extended point, as `msm`."""
+    n = points[0].shape[0]
+    assert len(scalars) == n
+    p = mesh.world
+    pad = (-n) % p
+    if pad:
+        ident = point_identity((pad,), device=points[0].device)
+        points = tuple(torch.cat([a, b], dim=0)
+                       for a, b in zip(points, ident))
+        scalars = list(scalars) + [0] * pad
+    k = (253 + w - 1) // w
+    m = (n + pad) // p
+    mine = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    wsums = torch.stack(_window_sums(scalars[mine],
+                                     tuple(a[mine] for a in points), w, k))
+    everyone = mesh.all_gather(wsums[None], dim=0)             # (p, 4, K, 16)
+    acc = tuple(everyone[0])
+    for r in range(1, p):
+        acc = point_add(acc, tuple(everyone[r]))
+    return _horner_windows(acc, w)
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,11 @@ def hash_pairs_words(level: torch.Tensor) -> torch.Tensor:
     return compress_blocks(state, pad.expand(m, 16))
 
 
+def sha256(data: bytes) -> bytes:
+    """Host single-shot (hashlib)."""
+    return hashlib.sha256(data).digest()
+
+
 def chained_hash(items: list[bytes]) -> bytes:
     """Chained SHA-256: H(..H(H(x0) || x1) || x2 ..) — the authority-set
     commitment shape (justification.rs:127-162, input/mod.rs:250-260)."""

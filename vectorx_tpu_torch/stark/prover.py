@@ -109,12 +109,13 @@ def _use_streaming(air: Air, config: StarkConfig) -> bool:
 
 
 def preprocess(air: Air, config: StarkConfig, consts_u64=None, *, device,
-               streamed: bool | None = None):
+               streamed: bool | None = None, domain=stages.LOCAL):
     """Commit to the preprocessed (constant) columns — the AIR's
     verification key.  Returns (tree, lde, coeffs), or Nones when the AIR
     has no constant columns.  Streamed (by default: past the streaming
     bound), the tree is a HostTree and the lde None (the streamed prover
-    evaluates the columns per coset)."""
+    evaluates the columns per coset).  Unstreamed, the commitment follows
+    `domain`'s layout."""
     consts = air.constant_columns() if consts_u64 is None else consts_u64
     if consts.shape[0] == 0:
         return None, None, None
@@ -126,7 +127,7 @@ def preprocess(air: Air, config: StarkConfig, consts_u64=None, *, device,
                                       config.fri.cap_height)
         lde = None
     else:
-        coeff, lde, tree = stages.commit_rows(
+        coeff, lde, tree = domain.commit_rows(
             gl.from_u64(consts, device), rate_bits=config.rate_bits,
             cap_height=config.fri.cap_height)
     vk.seed_token(air, config, tree.cap_ints())
@@ -275,8 +276,11 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
     `blowup` is the index distance of "the next trace row": the blowup on
     the whole LDE domain, 1 on one stride-`blowup` coset (`prove_streamed`);
     `zh` is a tensor over the points or, on one coset, a Python int.
+    The points are those of `x`: the rows hold them first, then (on a
+    rank's block of the domain) the `blowup` next-row points past them.
     """
-    W, N = tr.shape
+    W = tr.shape[0]
+    N = x.shape[0]
     dev = tr.device
     ap = [ext_py.ONE]
 
@@ -313,7 +317,7 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
         for s in range(0, n_bnd, cb):
             e = min(s + cb, n_bnd)
             # column index >= W addresses an aux column (lookup_boundaries)
-            pc = torch.stack([tr[c] if c < W else ax[c - W]
+            pc = torch.stack([tr[c, :N] if c < W else ax[c - W, :N]
                               for (_r, c, _v) in boundaries[s:e]])
             zhb = zh[None] if isinstance(zh, torch.Tensor) else zh
             b = gl.mul(gl.mul(gl.sub(pc, vals[s:e]), zhb), dinv[seg[s:e]])
@@ -326,11 +330,13 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
 # ---------------------------------------------------------------------------
 
 def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
-                      challenger: Challenger, spill: bool = False):
+                      challenger: Challenger, spill: bool = False,
+                      domain=stages.LOCAL):
     """Fold-and-commit layers.  Returns (FriProof without query rounds,
-    [(codeword, tree)] per layer): device codewords and DeviceTrees, or
-    with `spill` (the streamed prover) host uint64 codewords and HostTrees,
-    moved off the device as each layer is committed."""
+    [(codeword, tree)] per layer): device codewords and DeviceTrees (or
+    `domain`'s trees), or with `spill` (the streamed prover) host uint64
+    codewords and HostTrees, moved off the device as each layer is
+    committed."""
     layers = []
     caps = []
     c = L
@@ -338,7 +344,7 @@ def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
     cur_shift = shift
     cur_log = log_len
     while n > config.final_poly_len << config.rate_bits:
-        tree = stages.fri_commit_layer(
+        tree = domain.fri_commit_layer(
             c, cur_log, min(config.cap_height, cur_log - 1))
         if spill:
             tree = stages.HostTree.from_device(tree)
@@ -358,7 +364,7 @@ def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
     for (a, b) in final_coeffs:
         challenger.observe(a)
         challenger.observe(b)
-    pow_witness = stages.grind(challenger, config.pow_bits, L[0].device)
+    pow_witness = domain.grind(challenger, config.pow_bits, L[0].device)
     proof = FriProof(caps=caps, final_coeffs=final_coeffs,
                      pow_witness=pow_witness)
     return proof, layers
@@ -394,10 +400,17 @@ def _fri_rounds(fri_pairs, fri_paths, n_queries: int):
 # ---------------------------------------------------------------------------
 
 def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
-          *, device) -> StarkProof:
+          *, device, domain=stages.LOCAL) -> StarkProof:
     """Prove `air` on the (W, n) uint64 trace, every stage on `device`.
-    A statement above STREAM_THRESHOLD_ELEMS goes to `prove_streamed`."""
+    A statement above STREAM_THRESHOLD_ELEMS goes to `prove_streamed`.
+
+    `domain` lays out the LDE domain (`stages.LocalDomain`: all of it
+    here); `parallel.sharded_prove` passes one that splits it over ranks.
+    The transcript, and so the proof, is the same under every layout."""
     if _use_streaming(air, config):
+        if domain is not stages.LOCAL:
+            raise NotImplementedError("the streamed prover runs on one "
+                                      "device")
         return prove_streamed(air, trace_u64, config, device=device)
     n = air.n
     W = air.width
@@ -415,13 +428,13 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     consts_u64 = air.constant_columns()
     K = consts_u64.shape[0]
     const_tree, const_lde, const_coeff = preprocess(air, config, consts_u64,
-                                                    device=dev)
+                                                    device=dev, domain=domain)
     if const_tree is not None:
         challenger.observe_cap(const_tree.cap_ints())
 
     # ---- trace commit -------------------------------------------------------
     tr = gl.from_u64(trace_u64, dev)
-    coeff, tr_lde, trace_tree = stages.commit_rows(tr, rate_bits=rate,
+    coeff, tr_lde, trace_tree = domain.commit_rows(tr, rate_bits=rate,
                                                    cap_height=cap_h)
     challenger.observe_cap(trace_tree.cap_ints())
 
@@ -434,7 +447,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     betas, deltas = _aux_challenges(air, K, challenger)
     if lookups or ports:
         ax = aux_witness(air, tr, gl.from_u64(consts_u64, dev), betas, deltas)
-        aux_coeff, aux_lde, aux_tree = stages.commit_rows(
+        aux_coeff, aux_lde, aux_tree = domain.commit_rows(
             ax, rate_bits=rate, cap_height=cap_h)
         del ax
         challenger.observe_cap(aux_tree.cap_ints())
@@ -442,15 +455,16 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
 
     # ---- constraint composition -------------------------------------------
     alpha = challenger.get_extension_challenge()
-    x = stages.domain_x(log_N, gl.GENERATOR, dev)
+    x = domain.points(stages.domain_x(log_N, gl.GENERATOR, dev))
     zh, zhinv = stages.zh_on_domain(air.log_n, rate, dev)
     w = _root_of_unity(air.log_n, inverse=False)
     x_last = pow(w, n - 1, P)
     boundaries = list(air.boundaries(public)) + \
         (lookup_boundaries(air) if (lookups or ports) else [])
-    acc = _composition(air, public, boundaries, x_last, blowup, tr_lde,
-                       aux_lde if A else empty, const_lde if K else empty,
-                       alpha, betas, deltas, x, zh)
+    acc = domain.gather(_composition(
+        air, public, boundaries, x_last, blowup, tr_lde,
+        aux_lde if A else empty, const_lde if K else empty,
+        alpha, betas, deltas, x, domain.points(zh)))
 
     # ---- quotient -----------------------------------------------------------
     chunks = _num_quotient_chunks(air)
@@ -458,7 +472,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     del acc
     assert ok, \
         "composition polynomial exceeds quotient degree bound (AIR misconfigured?)"
-    _, q_lde, quot_tree = stages.commit_rows(q, rate_bits=rate,
+    _, q_lde, quot_tree = domain.commit_rows(q, rate_bits=rate,
                                              cap_height=cap_h, do_intt=False)
     challenger.observe_cap(quot_tree.cap_ints())
 
@@ -470,13 +484,18 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
 
     # ---- DEEP composition codeword ------------------------------------------
     gamma = challenger.get_extension_challenge()
-    ldes = (tr_lde, aux_lde if A else None, const_lde if K else None, q_lde)
-    L = stages.deep_compose(ldes, opened, gamma, zeta, w_zeta,
-                            W, A, K, chunks, log_N)
+    npts = x.shape[0]
+    ldes = tuple(None if g is None else g[:, :npts] for g in
+                 (tr_lde, aux_lde if A else None, const_lde if K else None,
+                  q_lde))
+    L = domain.gather(stages.deep_compose(ldes, opened, gamma, zeta, w_zeta,
+                                          W, A, K, chunks, x))
+    del ldes
 
     # ---- FRI ------------------------------------------------------------------
     fri_proof, fri_layers = _fri_prove_staged(L, log_N, gl.GENERATOR,
-                                              config.fri, challenger)
+                                              config.fri, challenger,
+                                              domain=domain)
     del L
     indices = derive_query_indices(challenger, log_N, config.fri.num_queries)
 
@@ -489,7 +508,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     if A:
         leaf_groups.append(aux_lde)
         trees.append(aux_tree)
-    g_leaves, g_paths, fri_pairs, fri_paths = stages.open_positions(
+    g_leaves, g_paths, fri_pairs, fri_paths = domain.open_positions(
         indices, leaf_groups, trees, fri_layers)
     Q = len(indices)
     trace_openings = _tree_openings(g_leaves[0], g_paths[0], Q)

@@ -280,6 +280,44 @@ def open_positions_host(indices, trees, fri_layers):
     return group_paths, fri_pairs, fri_paths
 
 
+class LocalDomain:
+    """How `prove` lays out the LDE domain: all of it on one device.
+
+    `prove` reaches every stage that depends on the layout through these
+    hooks; `vectorx_tpu_torch.parallel.sharded_prove.ShardedDomain` splits
+    the domain's points over ranks behind the same ones.  An LDE a hook
+    returns holds the points `points()` selects, followed by the "next
+    row" points the composition reads past them (none here: it wraps)."""
+
+    def commit_rows(self, rows, *, rate_bits: int, cap_height: int,
+                    do_intt: bool = True):
+        """(coeffs of every row, LDE of this layout's points, tree)."""
+        return commit_rows(rows, rate_bits=rate_bits, cap_height=cap_height,
+                           do_intt=do_intt)
+
+    def points(self, t):
+        """The entries of a full-domain (..., N) table at this layout's
+        points."""
+        return t
+
+    def gather(self, c):
+        """An ext codeword (c0, c1) over this layout's points -> over the
+        whole domain."""
+        return c
+
+    def fri_commit_layer(self, c, cur_log: int, cap_height: int):
+        return fri_commit_layer(c, cur_log, cap_height)
+
+    def grind(self, challenger, pow_bits: int, device) -> int:
+        return grind(challenger, pow_bits, device)
+
+    def open_positions(self, indices, leaf_groups, trees, fri_layers):
+        return open_positions(indices, leaf_groups, trees, fri_layers)
+
+
+LOCAL = LocalDomain()
+
+
 # ---------------------------------------------------------------------------
 # Quotient
 # ---------------------------------------------------------------------------
@@ -378,12 +416,12 @@ def _base_group_weighted(cols, weights, opened, inv_den):
 
 
 def deep_compose(ldes, opened, gamma, zeta, w_zeta,
-                 W: int, A: int, K: int, chunks: int, log_N: int):
-    """The DEEP codeword over the full LDE domain.
+                 W: int, A: int, K: int, chunks: int, x):
+    """The DEEP codeword at the points `x` of the LDE domain that the LDE
+    rows hold (all of it, or a rank's block).
 
     ldes: (trace, aux | None, const | None, quotient) LDE rows (R, N).
     opened: (tz, tnz, az, anz, kz, qz) lists of ext int pairs."""
-    x = domain_x(log_N, gl.GENERATOR, ldes[0].device)
     return _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x)
 
 
