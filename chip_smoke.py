@@ -147,18 +147,29 @@ so the script exits non-zero and prints no final line:
    measured host-copy rate; the sharded prover step (2 traces of 8 x 2^14
    a rank, LDE 2^17) equal to one rank's unsharded roots and checksum;
    `prove_sharded` of FibonacciAir(14) at `StarkConfig(fri=FriConfig())`
-   (cut from the production statements' 2^20 rows and up), resumed from
-   the checkpoint store; `msm_sharded` of phase 6's 481 terms at window
-   8; `HeaderRangeJob` at the header_range_256 widths (300 authorities,
-   35,840 B headers, phase 7's header mix) with its 256 headers cut to 64
+   (cut from the production statements' 2^20 rows and up), every prover
+   stage split over the ranks, with its collectives, the elements each
+   rank sent into all_gathers, each rank's peak device memory and the
+   K1/K2 launches of its sharded quotient iNTT (`ntt_sharded.
+   coset_intt_blocks`; K1 must launch), resumed from the checkpoint
+   store; `prove_sharded` of a RangeCheckAir(6, 5, V=4) (constant
+   columns, LogUp aux columns, 3 quotient chunks) under the port's
+   `STREAM_THRESHOLD_ELEMS` lowered just below it in the ranks, where the
+   sharded prove takes the unstreamed, split schedule; `msm_sharded` of
+   phase 6's 481 terms at window 8; `HeaderRangeJob` at the
+   header_range_256 widths (300 authorities, 35,840 B headers, phase 7's
+   header mix) with its 256 headers cut to 64
    (8 leaves: a leaf's 280 fixed Blake2b compressions took 32.1 s for 16
    leaves a worker), the two ranks splitting `run_map_stage` over one
    store directory and rank 0's `run` equal to `DummyHeaderRange(64)`
    with every leaf read from the store.  Beside the ranks, phase 12's
-   process proves the same statement unsharded on the card and runs
-   `msm` on the same terms: the sharded proof's JSON must equal the
-   unsharded proof's byte for byte, and `verify` accept it; both ranks'
-   MSM must equal `msm` in affine form.  Beside them too run a probe of
+   process proves the same statement unsharded on the card (its peak
+   device memory beside the ranks'), proves the RangeCheckAir under the
+   same lowered bound, which streams (`prove_streamed`), restoring the
+   bound after it, and runs `msm` on the same terms: each sharded proof's
+   JSON must equal the one-device proof's byte for byte, and `verify`
+   accept the FibonacciAir one; both ranks' MSM must equal `msm` in
+   affine form.  Beside them too run a probe of
    whether NCCL accepts two ranks on the one card (two processes,
    `--phase-17-nccl <dir> <rank>`, one all_reduce; the outcome is
    printed, the phase uses gloo either way) and
@@ -209,6 +220,7 @@ limit, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -3150,6 +3162,82 @@ P17_SIDES = (12, 6)
 P17_STEP_LOG_N = 14
 P17_FIB_LOG_N = 14
 HR256 = (64, 300, 35840)
+# the statement proved past a lowered streaming bound: RangeCheckAir at
+# log_n 6, 5-bit table, 4 value columns (constant columns, two LogUp
+# lookups, 3 quotient chunks), small enough to prove in seconds: at log_n
+# 12 it took 16.7 s on the ranks (one NVIDIA H100 80GB HBM3, 700 W),
+# Poseidon's cost per call (ROADMAP B1) times the tree levels, past phase
+# 17's 15 s budget for it
+P17_BOUND_AIR = (6, 5, 4)
+
+
+def p17_count_gathers(mesh) -> list:
+    """Wrap `mesh.all_gather` so that the returned one-item list adds up
+    the elements this rank sends into each call."""
+    sent = [0]
+    gather = mesh.all_gather
+
+    def counted(x, dim=0):
+        sent[0] += x.numel()
+        return gather(x, dim)
+
+    mesh.all_gather = counted
+    return sent
+
+
+@contextlib.contextmanager
+def p17_quotient_launches(launches: dict):
+    """Add to `launches` the K1/K2 launches made inside
+    `ntt_sharded.coset_intt_blocks` (the sharded quotient iNTT) while
+    active."""
+    from vectorx_tpu_torch.ntt import cuda_ntt
+    from vectorx_tpu_torch.parallel import ntt_sharded
+
+    orig = ntt_sharded.coset_intt_blocks
+
+    def counted(*a, **kw):
+        before = dict(cuda_ntt.LAUNCHES)
+        out = orig(*a, **kw)
+        for name, n in cuda_ntt.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + n - before[name]
+        return out
+
+    ntt_sharded.coset_intt_blocks = counted
+    try:
+        yield
+    finally:
+        ntt_sharded.coset_intt_blocks = orig
+
+
+def p17_bound_statement():
+    """The RangeCheckAir of the streaming-bound check, its config, and the
+    bound that puts it past the line: one element under its committed
+    elements."""
+    import numpy as np
+
+    from vectorx_tpu_torch.fri.fri import FriConfig
+    from vectorx_tpu_torch.stark import RangeCheckAir, StarkConfig
+    from vectorx_tpu_torch.stark import prover
+
+    log_n, bits, V = P17_BOUND_AIR
+    vals = np.random.default_rng(1712).integers(
+        0, 1 << bits, size=(V, (1 << log_n) - 1), dtype=np.uint64)
+    air = RangeCheckAir(log_n, bits, vals)
+    cfg = StarkConfig(fri=FriConfig())
+    return air, cfg, prover._commit_cols(air) * (air.n << cfg.rate_bits) - 1
+
+
+@contextlib.contextmanager
+def p17_lowered_bound(bound: int):
+    """The port's `STREAM_THRESHOLD_ELEMS` set to `bound` while active."""
+    from vectorx_tpu_torch.stark import prover
+
+    saved = prover.STREAM_THRESHOLD_ELEMS
+    prover.STREAM_THRESHOLD_ELEMS = bound
+    try:
+        yield
+    finally:
+        prover.STREAM_THRESHOLD_ELEMS = saved
 
 
 def p17_four_step(mesh, say, card: str) -> dict:
@@ -3273,11 +3361,13 @@ def p17_statement():
             StarkConfig(fri=FriConfig()))
 
 
-def p17_prove(mesh, path: str, say, card: str) -> dict:
+def p17_prove(mesh, path: str, say, card: str, gathered: list) -> dict:
     """`prove_sharded` of FibonacciAir(14) at `StarkConfig(fri=FriConfig())`,
     then resumed from the checkpoint store; rank 0 writes the proof JSON
     to `<dir>/sharded_proof.json` (`p17_references` holds it against the
-    unsharded card proof)."""
+    unsharded card proof).  With its collectives, the elements this rank
+    sent into all_gathers, its peak device memory above what it held
+    before, and the K1/K2 launches of the sharded quotient iNTT."""
     import torch
 
     from vectorx_tpu_torch.parallel.scheduler import CheckpointStore
@@ -3289,13 +3379,24 @@ def p17_prove(mesh, path: str, say, card: str) -> dict:
     store_dir = os.path.join(path, "store")
     reset_launches()
     mesh.reset_counts()
+    gathered[0] = 0
+    quotient = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
     t0 = time.perf_counter()
-    proof, hit = prove_sharded(air, trace, cfg, mesh,
-                               store=CheckpointStore(store_dir), job="fib")
+    with p17_quotient_launches(quotient):
+        proof, hit = prove_sharded(air, trace, cfg, mesh,
+                                   store=CheckpointStore(store_dir),
+                                   job="fib")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(mesh.device) - base
     launches = read_launches("sharded prove")
+    if quotient.get("ntt_tile", 0) <= 0:
+        raise AssertionError("the sharded quotient iNTT launched no K1")
     counts = dict(mesh.counts)
+    sent = gathered[0]
     text = json.dumps(proof_to_json(proof))
     if hit:
         raise AssertionError("prove_sharded hit an empty store")
@@ -3307,12 +3408,59 @@ def p17_prove(mesh, path: str, say, card: str) -> dict:
     if mesh.rank == 0:
         with open(os.path.join(path, "sharded_proof.json"), "w") as f:
             f.write(text)
+    peaks = mesh.all_gather(torch.tensor([peak], dtype=torch.int64,
+                                         device=mesh.device))
     say(f"phase 17: prove_sharded(FibonacciAir({P17_FIB_LOG_N}), "
         f"FriConfig()) over {mesh.world} ranks: {secs:.3f} s, "
         f"{len(text)} bytes of proof JSON; resumed from the store in "
-        f"{time.perf_counter() - t0:.3f} s; collectives {counts}; launches "
-        f"{launches}  [{card}]")
-    return {"launches": launches, "seconds": secs, "collectives": counts}
+        f"{time.perf_counter() - t0:.3f} s; collectives {counts}; elements "
+        f"each rank sent into all_gathers {sent}; peak device memory per "
+        f"rank above its standing allocations "
+        f"{[round(int(v) / 2**20, 2) for v in peaks]} MiB; launches "
+        f"{launches}, of which the sharded quotient iNTT {quotient}  "
+        f"[{card}]")
+    return {"launches": launches, "seconds": secs, "collectives": counts,
+            "gathered": sent, "peak": peak, "quotient_launches": quotient}
+
+
+def p17_bound(mesh, path: str, say, card: str, gathered: list) -> dict:
+    """`prove_sharded` of `p17_bound_statement()`'s RangeCheckAir under a
+    streaming bound lowered just below it: the one-device `prove` would
+    stream it, the sharded one takes the unstreamed schedule split over
+    the ranks.  Rank 0 writes the proof JSON to `<dir>/bound_proof.json`
+    (`p17_check_references` holds it against the one-device streamed
+    proof)."""
+    import torch
+
+    from vectorx_tpu_torch.parallel.sharded_prove import (proof_to_json,
+                                                          prove_sharded)
+    from vectorx_tpu_torch.stark import prover
+
+    air, cfg, bound = p17_bound_statement()
+    reset_launches()
+    mesh.reset_counts()
+    gathered[0] = 0
+    t0 = time.perf_counter()
+    with p17_lowered_bound(bound):
+        if not prover._use_streaming(air, cfg):
+            raise AssertionError("the bound check's statement is not past "
+                                 "the lowered bound")
+        proof, _ = prove_sharded(air, air.build_trace(), cfg, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # K1 only: every transform of this statement is under 2^14 points
+    launches = read_launches("sharded prove past the bound",
+                             need=["ntt_tile"])
+    if mesh.rank == 0:
+        with open(os.path.join(path, "bound_proof.json"), "w") as f:
+            f.write(json.dumps(proof_to_json(proof)))
+    log_n, bits, V = P17_BOUND_AIR
+    say(f"phase 17: prove_sharded(RangeCheckAir({log_n}, {bits}, V={V}), "
+        f"FriConfig()) past a streaming bound lowered to {bound}: "
+        f"{secs:.3f} s; collectives {dict(mesh.counts)}; elements each "
+        f"rank sent into all_gathers {gathered[0]}; launches {launches}  "
+        f"[{card}]")
+    return {"launches": launches, "seconds": secs}
 
 
 def p17_msm_terms(device):
@@ -3356,19 +3504,43 @@ def p17_msm(mesh, say, card: str) -> dict:
 def p17_references(dev, card: str) -> dict:
     """The one-device results phase 17's ranks are held against, computed
     in phase 12's process while they run: FibonacciAir(14)'s proof by
-    `prove` on the card, and `msm` of phase 6's 481 terms."""
+    `prove` on the card (and its peak device memory above the process's
+    standing allocations), the bound check's RangeCheckAir proved by the
+    streamed prover under the lowered bound, and `msm` of phase 6's 481
+    terms."""
     import torch
 
     from vectorx_tpu_torch.curves import ed25519_batch as eb
     from vectorx_tpu_torch.parallel.sharded_prove import proof_to_json
-    from vectorx_tpu_torch.stark import prove
+    from vectorx_tpu_torch.stark import prove, prover
 
     air, cfg = p17_statement()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     proof = prove(air, air.build_trace(), cfg, device=dev)
     torch.cuda.synchronize()
     res = {"proof": json.dumps(proof_to_json(proof)),
-           "prove_seconds": time.perf_counter() - t0}
+           "prove_seconds": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(dev) - base}
+    air, cfg, bound = p17_bound_statement()
+    streamed = []
+    orig = prover.prove_streamed
+    prover.prove_streamed = lambda *a, **kw: streamed.append(1) or orig(
+        *a, **kw)
+    t0 = time.perf_counter()
+    try:
+        with p17_lowered_bound(bound):
+            proof = prove(air, air.build_trace(), cfg, device=dev)
+    finally:
+        prover.prove_streamed = orig
+    torch.cuda.synchronize()
+    if not streamed:
+        raise AssertionError("the one-device prove past the lowered bound "
+                             "did not stream")
+    res["bound_proof"] = json.dumps(proof_to_json(proof))
+    res["bound_seconds"] = time.perf_counter() - t0
     scalars, pts = p17_msm_terms(dev)
     t0 = time.perf_counter()
     res["msm"] = p17_affine(eb.msm(scalars, pts, 8))
@@ -3448,6 +3620,7 @@ def phase17_rank(path: str, rank: int) -> dict:
         mesh = make_mesh(P17_WORLD, device="cuda")
         torch.cuda.set_device(mesh.device)
         cuda_ntt.load()
+        gathered = p17_count_gathers(mesh)
         card = card_line()
         say = log if rank == 0 else (lambda msg: None)
         say(f"phase 17: rank processes up in {time.perf_counter() - t_start:.2f}"
@@ -3455,7 +3628,8 @@ def phase17_rank(path: str, rank: int) -> dict:
         res = {"four_step": p17_four_step(mesh, say, card),
                "prover_step": p17_prover_step(mesh, say, card),
                "msm": p17_msm(mesh, say, card),
-               "prove": p17_prove(mesh, path, say, card),
+               "prove": p17_prove(mesh, path, say, card, gathered),
+               "bound": p17_bound(mesh, path, say, card, gathered),
                "scheduler": p17_scheduler(mesh, path, say, card)}
     finally:
         dist.destroy_process_group()
@@ -3525,8 +3699,20 @@ def p17_check_references(dev, card: str, d: str, ranks, refs) -> None:
         raise AssertionError("verify rejected the sharded proof")
     log(f"phase 17: the sharded FibonacciAir({P17_FIB_LOG_N}) proof JSON == "
         f"the unsharded card proof's (one device: "
-        f"{refs['prove_seconds']:.3f} s, beside the ranks); verify accepts "
-        f"it ({time.perf_counter() - t0:.3f} s)  [{card}]")
+        f"{refs['prove_seconds']:.3f} s, beside the ranks, peak device "
+        f"memory above its standing allocations "
+        f"{refs['peak'] / 2**20:.2f} MiB); verify accepts it "
+        f"({time.perf_counter() - t0:.3f} s)  [{card}]")
+    with open(os.path.join(d, "bound_proof.json")) as f:
+        if f.read() != refs["bound_proof"]:
+            raise AssertionError("the sharded RangeCheckAir proof past the "
+                                 "lowered bound != the streamed one-device "
+                                 "proof's")
+    log_n, bits, V = P17_BOUND_AIR
+    log(f"phase 17: the sharded RangeCheckAir({log_n}, {bits}, V={V}) proof "
+        f"past the lowered streaming bound == the one-device proof, which "
+        f"streamed (prove_streamed: {refs['bound_seconds']:.3f} s, beside "
+        f"the ranks)  [{card}]")
     for res in ranks:
         if res["msm"]["affine"] != refs["msm"]:
             raise AssertionError("msm_sharded != msm")
@@ -3571,7 +3757,7 @@ def phase_sharded(dev, card: str, path: str) -> dict:
     p17_check_references(dev, card, d, ranks, refs)
     launches = dict.fromkeys(cuda_ntt.LAUNCHES, 0)
     for res in ranks:
-        for path_name in ("four_step", "prover_step", "prove"):
+        for path_name in ("four_step", "prover_step", "prove", "bound"):
             for name, n in res[path_name]["launches"].items():
                 launches[name] += n
     for name, n in dr["launches"].items():

@@ -1,5 +1,6 @@
 """The port's `parallel/` on two gloo CPU ranks, held against the JAX
 package: the four-step NTT (forward and inverse) and its one all-to-all,
+the coset iNTT over row blocks of the sharded quotient (two all-to-alls),
 the sharded prover step, `msm_sharded`, the communication model, the
 two-process `init_distributed` case of `tests/test_multiprocess_mesh.py`
 and the dry-run twin.
@@ -23,6 +24,7 @@ import torch
 from jax.sharding import Mesh as JMesh, NamedSharding, PartitionSpec as P
 
 from vectorx_tpu.field import goldilocks as jgl
+from vectorx_tpu.ntt import coset_intt as jcoset_intt
 from vectorx_tpu.parallel import comm_model as jcomm
 from vectorx_tpu.parallel import ntt_sharded as jns
 from vectorx_tpu.parallel.prover_step import \
@@ -38,6 +40,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
 SHAPES = [(32, 32), (16, 32)]
+# (R, C) of the coset iNTT over row blocks: two (B = 2) size-R·C vectors
+COSET_SHAPES = [(16, 16), (8, 32)]
 STEP = (16, 4, 32)                 # B, W, n of the prover step
 RANK_TIMEOUT_S = 240
 
@@ -46,6 +50,11 @@ def poly(R, C, inverse):
     seed = 100 + 2 * R + C + int(inverse)
     return np.random.default_rng(seed).integers(0, gl.P, size=(R, C),
                                                 dtype=np.uint64)
+
+
+def coset_evals(R, C):
+    return np.random.default_rng(300 + R + C).integers(
+        0, gl.P, size=(2, R * C), dtype=np.uint64)
 
 
 def step_traces():
@@ -87,7 +96,8 @@ _WORKER = textwrap.dedent("""
     from vectorx_tpu_torch.parallel.comm_model import collective_counts
     from vectorx_tpu_torch.parallel.mesh import (make_mesh, make_mesh_2d,
                                                  replicated, shard_batch)
-    from vectorx_tpu_torch.parallel.ntt_sharded import four_step_ntt
+    from vectorx_tpu_torch.parallel.ntt_sharded import (coset_intt_blocks,
+                                                        four_step_ntt)
     from vectorx_tpu_torch.parallel.prover_step import \\
         make_sharded_prover_step
     from vectorx_tpu_torch.parallel.scheduler import init_distributed
@@ -111,6 +121,18 @@ _WORKER = textwrap.dedent("""
                           inverse=key.endswith(":1"))
         res["ntt"][key] = {"rows": gl.to_u64(y).tolist(),
                            "counts": collective_counts(mesh)}
+
+    # the coset iNTT over row blocks: this rank's block of points in, its
+    # slab of coefficients in transposed digit order out
+    res["coset"] = {}
+    for key, (R, rows) in inputs["coset"].items():
+        x = np.array(rows, dtype=np.uint64)
+        m = x.shape[1] // world
+        mesh.reset_counts()
+        y = coset_intt_blocks(gl.from_u64(x[:, rank * m:(rank + 1) * m],
+                                          "cpu"), mesh, gl.GENERATOR, R)
+        res["coset"][key] = {"rows": gl.to_u64(y).tolist(),
+                             "counts": collective_counts(mesh)}
 
     # the sharded prover step over this rank's traces
     tr = np.array(inputs["traces"], dtype=np.uint64)
@@ -156,6 +178,8 @@ def ranks(tmp_path_factory):
     inputs = {"world": WORLD,
               "ntt": {f"{R}x{C}:{int(inv)}": poly(R, C, inv).tolist()
                       for R, C in SHAPES for inv in (False, True)},
+              "coset": {f"{R}x{C}": [R, coset_evals(R, C).tolist()]
+                        for R, C in COSET_SHAPES},
               "traces": step_traces().tolist(),
               "msm": msm_case()}
     (d / "inputs.json").write_text(json.dumps(inputs))
@@ -212,6 +236,34 @@ def test_four_step_reference_matches_reference(R, C, inverse):
     want = jgl.to_u64(*jns.four_step_ntt_reference(*jgl.from_u64(x), R, C,
                                                    inverse=inverse))
     assert np.array_equal(gl.to_u64(got), want)
+
+
+@pytest.mark.parametrize("R,C", COSET_SHAPES)
+def test_coset_intt_blocks_matches_reference(ranks, R, C):
+    """The ranks' slabs, stacked, == `four_step_ntt_reference`'s inverse
+    times shift^-i at coefficient i = k1 + R·k2, and == the one-device
+    `coset_intt` (the port's and the reference's) read in transposed digit
+    order; two all_to_alls a call."""
+    from vectorx_tpu_torch.ntt import coset_intt
+
+    got = np.concatenate([np.array(r["coset"][f"{R}x{C}"]["rows"],
+                                   dtype=np.uint64) for r in ranks], axis=1)
+    x = coset_evals(R, C)
+    s = pow(gl.GENERATOR, gl.P - 2, gl.P)
+    i = np.arange(R)[:, None] + R * np.arange(C)[None, :]
+    shifts = gl.from_u64(np.array([[pow(s, int(v), gl.P) for v in row]
+                                   for row in i], dtype=np.uint64), "cpu")
+    for b in range(2):
+        ref = ntt_sharded.four_step_ntt_reference(
+            gl.from_u64(x[b], "cpu"), R, C, inverse=True)
+        assert np.array_equal(got[b], gl.to_u64(gl.mul(ref, shifts)))
+        one = gl.to_u64(coset_intt(gl.from_u64(x[b], "cpu")))
+        assert np.array_equal(got[b], one.reshape(C, R).T)
+        want = jgl.to_u64(*jcoset_intt(*jgl.from_u64(x[b])))
+        assert np.array_equal(one, want)
+    for r in ranks:
+        assert r["coset"][f"{R}x{C}"]["counts"] == {
+            "all_to_all": 2, "all_gather": 0, "all_reduce": 0}
 
 
 def test_collective_census(ranks):

@@ -11,8 +11,9 @@ process per rank), the rank's device and the transport the caller chose:
   per device), named by the caller, never a retry after NCCL failed.
 
 The three collectives the port uses live here and nowhere else:
-`all_to_all`, `all_gather` and `all_reduce_sum`.  Each counts its calls in
-`Mesh.counts` (read by `comm_model.collective_counts`).  A rank layout
+`all_to_all` (tiled, or uneven as `all_to_all_v`), `all_gather` and
+`all_reduce_sum`.  Each counts its calls in `Mesh.counts` (read by
+`comm_model.collective_counts`).  A rank layout
 (`shard_batch`, `replicated`) says which slice of a leading axis a rank
 holds.
 """
@@ -100,6 +101,21 @@ class Mesh:
         recv = self._unstage(recv)
         return torch.cat([b.movedim(0, split_dim) for b in recv.unbind(0)],
                          dim=concat_dim)
+
+    def all_to_all_v(self, x: torch.Tensor, send: list[int],
+                     recv: list[int]) -> torch.Tensor:
+        """Uneven all-to-all along dim 0: the first send[0] rows of `x` go
+        to rank 0, the next send[1] to rank 1, ...; returns the rows
+        received, recv[j] of them from rank j, in rank order."""
+        if sum(send) != x.shape[0] or len(send) != self.world \
+                or len(recv) != self.world:
+            raise ValueError(f"splits {send} -> {recv} of {x.shape[0]} rows "
+                             f"over {self.world} ranks")
+        self.counts["all_to_all"] += 1
+        s = self._stage(x)
+        out = s.new_empty((sum(recv), *s.shape[1:]))
+        dist.all_to_all_single(out, s, recv, send, group=self.group)
+        return self._unstage(out)
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's `x`, concatenated in rank order along `dim`."""

@@ -113,15 +113,18 @@ def preprocess(air: Air, config: StarkConfig, consts_u64=None, *, device,
     """Commit to the preprocessed (constant) columns — the AIR's
     verification key.  Returns (tree, lde, coeffs), or Nones when the AIR
     has no constant columns.  Streamed (by default: past the streaming
-    bound), the tree is a HostTree and the lde None (the streamed prover
-    evaluates the columns per coset).  Unstreamed, the commitment follows
-    `domain`'s layout."""
+    bound on one device), the tree is a HostTree and the lde None (the
+    streamed prover evaluates the columns per coset).  Unstreamed, the
+    commitment follows `domain`'s layout; its tree, and so its cap, is the
+    streamed one's."""
     consts = air.constant_columns() if consts_u64 is None else consts_u64
     if consts.shape[0] == 0:
         return None, None, None
     from vectorx_tpu_torch.stark import vk
 
-    if _use_streaming(air, config) if streamed is None else streamed:
+    if streamed is None:
+        streamed = domain is stages.LOCAL and _use_streaming(air, config)
+    if streamed:
         coeff = stages.to_coeffs(gl.from_u64(consts, device))
         tree = stages.commit_streamed(coeff, air.log_n + config.rate_bits,
                                       config.fri.cap_height)
@@ -156,15 +159,17 @@ def aux_witness(air: Air, tr: torch.Tensor, consts: torch.Tensor,
     Lookups are vectorized by arity; the bus takes one batched inverse."""
     rows = []
     if air.lookups():
-        rows.append(_lookup_sums(air, tr, consts, betas))
+        rows.append(lookup_sums(air.lookups(), tr, consts, betas))
     if air.bus_ports():
-        rows.append(_bus_columns(air, tr, consts, betas, deltas))
+        h = bus_helpers(air.bus_ports(), tr, consts, betas, deltas)
+        rows += [h.reshape(-1, h.shape[-1]),
+                 _exclusive_prefix_sum(gl.field_sum(h, 0))]
     return torch.cat(rows)
 
 
-def _lookup_sums(air: Air, tr: torch.Tensor, consts: torch.Tensor,
-                 betas: list[int]) -> torch.Tensor:
-    lookups = air.lookups()
+def lookup_sums(lookups, tr: torch.Tensor, consts: torch.Tensor,
+                betas: list[int]) -> torch.Tensor:
+    """The LogUp running sums Z_{l,s} of `lookups`, (lookup, set) rows."""
     S = NUM_LOOKUP_SETS
     n = tr.shape[-1]
     dev = tr.device
@@ -189,23 +194,25 @@ def _lookup_sums(air: Air, tr: torch.Tensor, consts: torch.Tensor,
     return _exclusive_prefix_sum(lr.reshape(len(lookups) * S, n))
 
 
-def _bus_columns(air: Air, tr: torch.Tensor, consts: torch.Tensor,
-                 betas: list[int], deltas: list[int]) -> torch.Tensor:
-    ports = air.bus_ports()
-    S = NUM_LOOKUP_SETS
+def bus_helpers(ports, tr: torch.Tensor, consts: torch.Tensor,
+                betas: list[int], deltas: list[int],
+                rows: slice = slice(None)) -> torch.Tensor:
+    """The bus helpers h_{p,s} of `ports` at the trace rows `rows` (all by
+    default), (Pp, S, rows)."""
     dev = tr.device
-    addr = consts[[p.addr_col for p in ports]][:, None]       # (Pp, 1, n)
-    mult = consts[[p.mult_col for p in ports]][:, None]
+    n = tr.shape[-1]
+    at = torch.arange(n, device=dev)[rows]
+    addr = consts[[p.addr_col for p in ports]][:, None, at]   # (Pp, 1, m)
+    mult = consts[[p.mult_col for p in ports]][:, None, at]
     # values are read on the next row
-    v0 = torch.roll(tr[[p.value_cols[0] for p in ports]], -1, dims=-1)[:, None]
-    v1 = torch.roll(tr[[p.value_cols[1] for p in ports]], -1, dims=-1)[:, None]
+    nxt = (at + 1) % n
+    v0 = tr[[p.value_cols[0] for p in ports]][:, None, nxt]
+    v1 = tr[[p.value_cols[1] for p in ports]][:, None, nxt]
     b = stages.const_column(betas, dev)                        # (S, 1)
     d1 = stages.const_column(deltas, dev)
     d2 = stages.const_column([d * d for d in deltas], dev)
     den = gl.sub(b, gl.add(gl.add(addr, gl.mul(v0, d1)), gl.mul(v1, d2)))
-    h = gl.mul(mult, gl.inv(den))                              # (Pp, S, n)
-    z = _exclusive_prefix_sum(gl.field_sum(h, 0))              # (S, n)
-    return torch.cat([h.reshape(len(ports) * S, -1), z])
+    return gl.mul(mult, gl.inv(den))
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +341,9 @@ def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
                       domain=stages.LOCAL):
     """Fold-and-commit layers.  Returns (FriProof without query rounds,
     [(codeword, tree)] per layer): device codewords and DeviceTrees (or
-    `domain`'s trees), or with `spill` (the streamed prover) host uint64
-    codewords and HostTrees, moved off the device as each layer is
-    committed."""
+    `domain`'s layers and trees), or with `spill` (the streamed prover)
+    host uint64 codewords and HostTrees, moved off the device as each
+    layer is committed."""
     layers = []
     caps = []
     c = L
@@ -344,7 +351,7 @@ def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
     cur_shift = shift
     cur_log = log_len
     while n > config.final_poly_len << config.rate_bits:
-        tree = domain.fri_commit_layer(
+        layer, tree = domain.fri_commit(
             c, cur_log, min(config.cap_height, cur_log - 1))
         if spill:
             tree = stages.HostTree.from_device(tree)
@@ -352,14 +359,14 @@ def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
         caps.append(cap)
         challenger.observe_cap(cap)
         beta = challenger.get_extension_challenge()
-        c_next = stages.fri_fold(c, beta, cur_log, cur_shift)
-        layers.append((stages.spill_codeword(c) if spill else c, tree))
-        c = c_next
+        c = domain.fri_fold(layer, beta, cur_log, cur_shift)
+        layers.append((stages.spill_codeword(layer) if spill else layer,
+                       tree))
         cur_shift = (cur_shift * cur_shift) % P
         cur_log -= 1
         n >>= 1
-    ok, final_coeffs = stages.fri_final_coeffs(c, cur_shift,
-                                               config.final_poly_len)
+    ok, final_coeffs = domain.fri_final(c, cur_log, cur_shift,
+                                        config.final_poly_len)
     assert ok, "FRI input codeword exceeds the claimed degree bound"
     for (a, b) in final_coeffs:
         challenger.observe(a)
@@ -402,15 +409,15 @@ def _fri_rounds(fri_pairs, fri_paths, n_queries: int):
 def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
           *, device, domain=stages.LOCAL) -> StarkProof:
     """Prove `air` on the (W, n) uint64 trace, every stage on `device`.
-    A statement above STREAM_THRESHOLD_ELEMS goes to `prove_streamed`.
+    On one device a statement above STREAM_THRESHOLD_ELEMS goes to
+    `prove_streamed`.
 
     `domain` lays out the LDE domain (`stages.LocalDomain`: all of it
-    here); `parallel.sharded_prove` passes one that splits it over ranks.
-    The transcript, and so the proof, is the same under every layout."""
-    if _use_streaming(air, config):
-        if domain is not stages.LOCAL:
-            raise NotImplementedError("the streamed prover runs on one "
-                                      "device")
+    here); `parallel.sharded_prove` passes one that splits it over ranks,
+    and then every statement takes this unstreamed schedule, each rank
+    holding its share (the reference's `trace_sharding`).  The
+    transcript, and so the proof, is the same under every layout."""
+    if domain is stages.LOCAL and _use_streaming(air, config):
         return prove_streamed(air, trace_u64, config, device=device)
     n = air.n
     W = air.width
@@ -446,7 +453,8 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     empty = torch.zeros((0, n << rate), dtype=torch.int64, device=dev)
     betas, deltas = _aux_challenges(air, K, challenger)
     if lookups or ports:
-        ax = aux_witness(air, tr, gl.from_u64(consts_u64, dev), betas, deltas)
+        ax = domain.aux_rows(air, tr, gl.from_u64(consts_u64, dev), betas,
+                             deltas)
         aux_coeff, aux_lde, aux_tree = domain.commit_rows(
             ax, rate_bits=rate, cap_height=cap_h)
         del ax
@@ -461,14 +469,14 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     x_last = pow(w, n - 1, P)
     boundaries = list(air.boundaries(public)) + \
         (lookup_boundaries(air) if (lookups or ports) else [])
-    acc = domain.gather(_composition(
+    acc = _composition(
         air, public, boundaries, x_last, blowup, tr_lde,
         aux_lde if A else empty, const_lde if K else empty,
-        alpha, betas, deltas, x, domain.points(zh)))
+        alpha, betas, deltas, x, domain.points(zh))
 
     # ---- quotient -----------------------------------------------------------
     chunks = _num_quotient_chunks(air)
-    ok, q = stages.quotient_coeffs(acc, zhinv, chunks, rate)
+    ok, q = domain.quotient(acc, domain.points(zhinv), chunks, rate)
     del acc
     assert ok, \
         "composition polynomial exceeds quotient degree bound (AIR misconfigured?)"
@@ -480,7 +488,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     zeta = challenger.get_extension_challenge()
     w_zeta = ext_py.mul(zeta, ext_py.from_base(w))
     opened = _open_at_zeta((coeff, aux_coeff, const_coeff, q), chunks, zeta,
-                           w_zeta, air.log_n, challenger)
+                           w_zeta, air.log_n, challenger, domain)
 
     # ---- DEEP composition codeword ------------------------------------------
     gamma = challenger.get_extension_challenge()
@@ -488,8 +496,8 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     ldes = tuple(None if g is None else g[:, :npts] for g in
                  (tr_lde, aux_lde if A else None, const_lde if K else None,
                   q_lde))
-    L = domain.gather(stages.deep_compose(ldes, opened, gamma, zeta, w_zeta,
-                                          W, A, K, chunks, x))
+    L = stages.deep_compose(ldes, opened, gamma, zeta, w_zeta, W, A, K,
+                            chunks, x)
     del ldes
 
     # ---- FRI ------------------------------------------------------------------
@@ -545,12 +553,13 @@ def _aux_challenges(air: Air, K: int, challenger: Challenger):
 
 
 def _open_at_zeta(groups, chunks: int, zeta, w_zeta, log_n: int,
-                  challenger: Challenger):
+                  challenger: Challenger, domain=stages.LOCAL):
     """Evaluate the coefficient groups (trace, aux | None, const | None,
-    quotient chunks) at ζ and w·ζ and observe every value.  Returns
-    (tz, tnz, az, anz, kz, qz) as lists of ext int pairs."""
+    quotient chunks; as `domain` holds them) at ζ and w·ζ and observe
+    every value.  Returns (tz, tnz, az, anz, kz, qz) as lists of ext int
+    pairs."""
     present = [g for g in groups if g is not None]
-    evals = iter(stages.deep_eval_groups(present, zeta, w_zeta, log_n))
+    evals = iter(domain.deep_evals(present, zeta, w_zeta, log_n))
     tz, tnz = next(evals)
     az, anz = next(evals) if groups[1] is not None else ([], [])
     kz = next(evals)[0] if groups[2] is not None else []

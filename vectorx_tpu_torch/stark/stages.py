@@ -287,11 +287,15 @@ class LocalDomain:
     hooks; `vectorx_tpu_torch.parallel.sharded_prove.ShardedDomain` splits
     the domain's points over ranks behind the same ones.  An LDE a hook
     returns holds the points `points()` selects, followed by the "next
-    row" points the composition reads past them (none here: it wraps)."""
+    row" points the composition reads past them (none here: it wraps).
+    Coefficients a hook returns are the polynomials this layout commits
+    and evaluates (all of them here); `prove` only hands them back to the
+    hooks."""
 
     def commit_rows(self, rows, *, rate_bits: int, cap_height: int,
                     do_intt: bool = True):
-        """(coeffs of every row, LDE of this layout's points, tree)."""
+        """(coeffs of the committed rows, LDE of this layout's points,
+        tree)."""
         return commit_rows(rows, rate_bits=rate_bits, cap_height=cap_height,
                            do_intt=do_intt)
 
@@ -300,13 +304,33 @@ class LocalDomain:
         points."""
         return t
 
-    def gather(self, c):
-        """An ext codeword (c0, c1) over this layout's points -> over the
-        whole domain."""
-        return c
+    def aux_rows(self, air, tr, consts, betas, deltas):
+        """The lookup/bus aux rows this layout commits (`commit_rows`)."""
+        from vectorx_tpu_torch.stark import prover
 
-    def fri_commit_layer(self, c, cur_log: int, cap_height: int):
-        return fri_commit_layer(c, cur_log, cap_height)
+        return prover.aux_witness(air, tr, consts, betas, deltas)
+
+    def quotient(self, acc, zhinv, chunks: int, rate_bits: int):
+        """(ok, quotient-chunk coefficients for `commit_rows(...,
+        do_intt=False)`) from the composition codeword over this layout's
+        points; `ok` is the degree check, the same on every rank."""
+        return quotient_coeffs(acc, zhinv, chunks, rate_bits)
+
+    def deep_evals(self, groups, zeta, w_zeta, log_n: int):
+        """`deep_eval_groups` of the coefficient groups `commit_rows` and
+        `quotient` returned."""
+        return deep_eval_groups(groups, zeta, w_zeta, log_n)
+
+    def fri_commit(self, c, cur_log: int, cap_height: int):
+        """(layer, tree) of an FRI codeword over this layout's points:
+        `layer` is what `fri_fold` and `open_positions` read."""
+        return c, fri_commit_layer(c, cur_log, cap_height)
+
+    def fri_fold(self, layer, beta, cur_log: int, cur_shift: int):
+        return fri_fold(layer, beta, cur_log, cur_shift)
+
+    def fri_final(self, c, cur_log: int, cur_shift: int, final_len: int):
+        return fri_final_coeffs(c, cur_shift, final_len)
 
     def grind(self, challenger, pow_bits: int, device) -> int:
         return grind(challenger, pow_bits, device)
@@ -354,9 +378,9 @@ def ext_power_table(pt, count: int, device):
     return tab[0][:count], tab[1][:count]
 
 
-def _dot_rows(c: torch.Tensor, tab) -> list:
-    """Σ_j c[r, j]·tab[j] for base rows (R, n) against an ext table, as a
-    list of canonical (c0, c1) int pairs per row."""
+def dot_rows(c: torch.Tensor, tab) -> torch.Tensor:
+    """Σ_j c[r, j]·tab[j] for base rows (R, n) against an ext table, as
+    (R, 2) (c0, c1) per row."""
     n = c.shape[-1]
     ch = max(1, LDE_CHUNK_ELEMS // max(1, 4 * n))
     e0, e1 = [], []
@@ -364,9 +388,12 @@ def _dot_rows(c: torch.Tensor, tab) -> list:
         blk = c[s:s + ch]
         e0.append(gl.field_sum(gl.mul(blk, tab[0]), -1))
         e1.append(gl.field_sum(gl.mul(blk, tab[1]), -1))
-    a = gl.to_u64(torch.cat(e0))
-    b = gl.to_u64(torch.cat(e1))
-    return [(int(x), int(y)) for x, y in zip(a, b)]
+    return torch.stack([torch.cat(e0), torch.cat(e1)], dim=1)
+
+
+def ext_pairs(t: torch.Tensor) -> list:
+    """(R, 2) ext values -> R canonical (c0, c1) int pairs."""
+    return [(int(x), int(y)) for x, y in gl.to_u64(t)]
 
 
 def deep_eval_groups(groups, zeta, w_zeta, log_n: int):
@@ -376,7 +403,8 @@ def deep_eval_groups(groups, zeta, w_zeta, log_n: int):
     n = groups[0].shape[-1]
     tz = ext_power_table(zeta, n, dev)
     twz = ext_power_table(w_zeta, n, dev)
-    return [(_dot_rows(g, tz), _dot_rows(g, twz)) for g in groups]
+    return [(ext_pairs(dot_rows(g, tz)), ext_pairs(dot_rows(g, twz)))
+            for g in groups]
 
 
 # ---------------------------------------------------------------------------
@@ -494,12 +522,18 @@ def fri_commit_layer(c, cur_log: int, cap_height: int) -> DeviceTree:
 def fri_fold(c, beta, cur_log: int, cur_shift: int):
     """One arity-2 fold: v'[i] = (v[i]+v[i+H])/2 + β·(v[i]−v[i+H])/(2·x_i)."""
     c0, c1 = c
-    dev = c0.device
     h = c0.shape[0] // 2
+    return fri_fold_pairs((c0[:h], c1[:h]), (c0[h:], c1[h:]), beta, cur_log,
+                          cur_shift, 0)
+
+
+def fri_fold_pairs(a, b, beta, cur_log: int, cur_shift: int, i0: int):
+    """`fri_fold` of the pairs (a, b) = (v[i], v[i+H]) for the leaves
+    i = i0, i0 + 1, ...: the next codeword's entries at those i."""
+    dev = a[0].device
     w_inv = pow(_root_of_unity(cur_log, inverse=False), P - 2, P)
-    inv2x = gl.mul(shift_table(w_inv, h, dev), pow(2 * cur_shift, P - 2, P))
-    a = (c0[:h], c1[:h])
-    b = (c0[h:], c1[h:])
+    inv2x = gl.mul(shift_table(w_inv, a[0].shape[0], dev),
+                   pow(w_inv, i0, P) * pow(2 * cur_shift, P - 2, P) % P)
     fo = ge.mul_base(ge.sub(a, b), inv2x)
     fe = ge.mul_base(ge.add(a, b), pow(2, P - 2, P))
     return ge.add(fe, ge.mul(fo, ext_const(beta, dev)))
