@@ -13,16 +13,22 @@ so the script exits non-zero and prints no final line:
    transform (forward, inverse, coset, LDE, round trip) at log_n in
    {1, 2, 5, 10, 13, 14, 16, 17, 20, 23, 24} with batches, leading dims
    and non-canonical inputs; every pair of u64 edge values and rows of
-   edge values; the header_range path's own transforms (a Blake2b chunk's
-   2664-row trace iNTT at 2^14 and its coset LDE to 2^17, whole and in the
-   prover's row blocks); each kernel alone at every step of the 2^24, the
-   (512, 2^17) and (50, 2^20) coset and the (2664, 2^14) inverse plans
-   ((50, 2^20): the aggregated rotate machine's widest column group on one
-   coset); then median times of each step and of the whole transforms at
-   (8, 2^20), (4, 2^23), (1, 2^24), (2664, 2^14), (512, 2^17) and
-   (50, 2^20), each beside its bound (bytes or integer multiply-adds, at
-   the SM clock read under load), its share of the bound, its plain
-   version and the time recorded for the first version of the kernels.
+   edge values, and edge-only coefficients through K3 and K4 alone and
+   `coset_lde` (n >= C and n < C); the header_range path's own transforms
+   (a Blake2b chunk's 2664-row trace iNTT at 2^14 and its coset LDE to
+   2^17, whole and in the prover's row blocks); each kernel alone at every
+   step of the 2^24, the (512, 2^17) and (50, 2^20) coset and the
+   (2664, 2^14) inverse plans (K1, K4) and of the (512, 2^14 -> 2^17) LDE
+   (K3, K4) ((50, 2^20): the aggregated rotate machine's widest column
+   group on one coset); then median times of each step and of the whole
+   transforms at (8, 2^20), (4, 2^23), (1, 2^24), (1, 2^26) (each step
+   held against its plain version first: K4's 2-row tile), (2664, 2^14),
+   (512, 2^17) and (50, 2^20) and of the LDE, each beside the
+   three-pass route on the same inputs (K1, K1, K2; the LDE padded
+   first), its bound (bytes or integer multiply-adds at the SM clock read
+   under load, by the shape alone), its share of the bound, its plain
+   version and the time recorded for the first version of the kernels;
+   and the transient peak device memory of one LDE chunk both ways.
 2. the `entry()` twin on CUDA and on CPU: equal Merkle roots; Poseidon's
    dense matvecs as float64 limb matmuls equal to the field-op products
    on 2^20 random states, each timed, and a whole permutation timed.
@@ -141,7 +147,7 @@ so the script exits non-zero and prints no final line:
    through a `file://` rendezvous in `<dir>`, each rank computing on CUDA
    and exchanging through explicit host copies (`Mesh.transport` "gloo
    via host copies"): `four_step_ntt` at N = 2^24 (R = C = 2^12), forward
-   and inverse, equal to the single-device K1/K2 transform in transposed
+   and inverse, equal to the single-device K1/K4 transform in transposed
    digit order, and at 2^12 equal to the plain torch transform, with one
    all_to_all per call, its time beside `comm_model.four_step_comm` at the
    measured host-copy rate; the sharded prover step (2 traces of 8 x 2^14
@@ -150,7 +156,7 @@ so the script exits non-zero and prints no final line:
    (cut from the production statements' 2^20 rows and up), every prover
    stage split over the ranks, with its collectives, the elements each
    rank sent into all_gathers, each rank's peak device memory and the
-   K1/K2 launches of its sharded quotient iNTT (`ntt_sharded.
+   K1/K4 launches of its sharded quotient iNTT (`ntt_sharded.
    coset_intt_blocks`; K1 must launch), resumed from the checkpoint
    store; `prove_sharded` of a RangeCheckAir(6, 5, V=4) (constant
    columns, LogUp aux columns, 3 quotient chunks) under the port's
@@ -173,8 +179,8 @@ so the script exits non-zero and prints no final line:
    whether NCCL accepts two ranks on the one card (two processes,
    `--phase-17-nccl <dir> <rank>`, one all_reduce; the outcome is
    printed, the phase uses gloo either way) and
-   `entry.dryrun_multichip(2, backend="gloo", device="cuda")`.  K1 and K2
-   must have launched on the sharded paths; their launches, summed over
+   `entry.dryrun_multichip(2, backend="gloo", device="cuda")`.  K1, K3 and
+   K4 must have launched on the sharded paths; their launches, summed over
    the ranks, join the kernels line.  The ranks are killed and the script
    fails if one fails or the phase passes `P17_DEADLINE_S`.
 
@@ -309,6 +315,52 @@ def k1_mads(batch, C, log_n, col, tw, pre, post, twiddle, scale) -> int:
     return GL_MUL_MADS * batch * C * products
 
 
+def three_pass_mads(b: int, log_n: int, inverse: bool, shift) -> int:
+    """The multiply-adds of a transform by the shape rule every bound of
+    phase 1 uses, whatever plan implements it: `k1_mads` summed over the
+    K1 steps of the three-pass four-step (K1 down the columns, K1 along
+    the rows, K2), or of the one K1 up to 2^S_BITS points."""
+    from vectorx_tpu_torch.ntt import cuda_ntt
+
+    pre = shift if shift is not None and not inverse else None
+    post = shift if shift is not None and inverse else None
+    scale = 2 if inverse else 1          # any scale but 1: a product
+    if log_n <= cuda_ntt.S_BITS:
+        return k1_mads(b, 1, log_n, False, None, pre, post, False, scale)
+    a, c = cuda_ntt.split(log_n)
+    return (k1_mads(b, 1 << c, a, True, None, pre, True, True, 1)
+            + k1_mads(b, 1 << a, c, False, None, None, post, False, scale))
+
+
+def three_pass_transform(x, log_n: int, inverse: bool, shift):
+    """The three-pass transform, composed from the public wrappers:
+    past 2^S_BITS points K1 down the columns, K1 along the rows and the K2
+    transpose (`cuda_ntt.plan`'s first step is still that column step);
+    up to it the one K1.  Every intermediate is dropped as soon as the
+    next step has read it, as the three-pass `transform` dropped it."""
+    from vectorx_tpu_torch.ntt import cuda_ntt
+
+    steps = cuda_ntt.plan(x, log_n, inverse, shift, cuda_ntt.S_BITS)
+    cur = cuda_ntt.ntt_tile(x, *steps[0][1:])
+    if len(steps) == 1:
+        return cur
+    _, b, R, c, tw, post, scale = steps[1]
+    cur = cuda_ntt.ntt_tile(cur, b, R, c, False, tw, None, post, False,
+                            scale)
+    return cuda_ntt.transpose(cur, b, R, 1 << c)
+
+
+def three_pass_lde(c, rate_bits: int, shift: int):
+    """The coset LDE by the three-pass route: pad, then
+    `three_pass_transform`."""
+    import torch
+
+    n = c.shape[-1]
+    padded = torch.nn.functional.pad(c, (0, (n << rate_bits) - n))
+    return three_pass_transform(padded, n.bit_length() - 1 + rate_bits, False,
+                          shift)
+
+
 def bound_ms(nbytes: int, mads: int, clock_mhz: float) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the
     memory rate and multiply-adds over the integer issue rate."""
@@ -336,16 +388,18 @@ def sm_clock_mhz(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 SIZES = (1, 2, 5, 10, 13, 14, 16, 17, 20, 23, 24)
-TIMED = ((8, 20), (4, 23), (1, 24))
+TIMED = ((8, 20), (4, 23), (1, 24), (1, 26))
 # The first version of the kernels (K1 `ntt_rows_smem`, one element per
 # thread and a barrier per radix-2 stage; K2 `ntt_twiddle_transpose`, which
 # then also multiplied by the four-step twiddles): its recorded times at the
 # same shapes on NVIDIA H100 80GB HBM3 at 700 W, one per run (PERF.md)
 FIRST_MS = {
     "K1 (512, 2^17) column step": "1.596 / 1.683 ms",
-    "K1 2^12 rows x 2^12": "0.498 / 0.530 / 0.502 / 0.491 ms",
-    "K2 (512, 2^17)": "0.420 / 0.427 ms (twiddled)",
-    "K2 2^12 x 2^12": "0.131 / 0.133 / 0.121 / 0.139 ms (twiddled)",
+    "K1 2^12 x 2^12 row step (three-pass route)":
+        "0.498 / 0.530 / 0.502 / 0.491 ms",
+    "K2 (512, 2^17) (three-pass route)": "0.420 / 0.427 ms (twiddled)",
+    "K2 2^12 x 2^12 (three-pass route)":
+        "0.131 / 0.133 / 0.121 / 0.139 ms (twiddled)",
     "NTT (8, 2^20)": "0.642 / 0.593 / 0.618 / 0.592 ms",
     "NTT (4, 2^23)": "2.400 / 2.442 / 2.576 / 2.429 ms",
     "NTT (1, 2^24)": "1.274 / 1.328 / 1.312 / 1.316 ms",
@@ -366,11 +420,13 @@ def phase_kernels(dev, card: str) -> dict:
     worst = 0
 
     def same(got, want, what):
+        # on the card first: the host copy only to measure a mismatch
+        if torch.equal(gl.canonicalize(got), gl.canonicalize(want)):
+            return
         nonlocal worst
         err = max_abs_err(got, want)
         worst = max(worst, err)
-        if err:
-            raise AssertionError(f"{what}: kernel != plain (max err {err})")
+        raise AssertionError(f"{what}: kernel != plain (max err {err})")
 
     for log_n in SIZES:
         t0 = time.perf_counter()
@@ -395,6 +451,7 @@ def phase_kernels(dev, card: str) -> dict:
         log(f"phase 1: transform log_n={log_n} {shapes} fwd/inv/coset "
             f"== plain, round trips ok ({time.perf_counter() - t0:.2f} s)")
 
+    t0 = time.perf_counter()
     # the kernels' carry chains at the edges of u64: every pair of edge
     # values as a length-2 transform (its add and subtract), and rows made
     # only of edge values through the coset, twiddle and scale products
@@ -410,8 +467,25 @@ def phase_kernels(dev, card: str) -> dict:
                 same(cuda_ntt.transform(x, log_n, inverse, shift),
                      cuda_ntt.transform_plain(x, log_n, inverse, shift),
                      f"edge values log_n={log_n} inv={inverse} shift={shift}")
+    # K3 and K4 alone and the whole coset LDE on edge-only coefficients:
+    # single-pass 2^5 -> 2^8, four-step 2^11 -> 2^14 (n >= C) and
+    # 2^2 -> 2^14 (n < C)
+    for log_n, rate in ((5, 3), (11, 3), (2, 12)):
+        x = gl.from_u64(rng.choice(e, (5, 1 << log_n)), dev)
+        cur = x
+        for i, (kind, *args) in enumerate(
+                cuda_ntt.plan_lde(x, rate, gl.GENERATOR, cuda_ntt.S_BITS)):
+            out = cuda_ntt.KERNELS[kind](cur, *args)
+            same(out, cuda_ntt.PLAIN[kind](cur, *args),
+                 f"edge values lde 2^{log_n} rate {rate} step {i} ({kind})")
+            cur = out
+        same(cuda_ntt.coset_lde(x, rate), cuda_ntt.coset_lde_plain(x, rate),
+             f"edge values coset_lde 2^{log_n} rate {rate}")
     log(f"phase 1: edge values of u64 (all {len(e)}^2 pairs at log_n 1, "
-        f"edge-only rows at 2^8 and 2^14) fwd/inv/coset == plain")
+        f"edge-only rows at 2^8 and 2^14; edge-only coefficients through "
+        f"K3 and K4 alone and coset_lde at 2^5 -> 2^8, 2^11 -> 2^14 and "
+        f"2^2 -> 2^14) fwd/inv/coset == plain "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     for log_n, rate in ((10, 3), (16, 3), (21, 3)):
         x = random_field(rng, (2, 1 << log_n), dev)
@@ -445,43 +519,51 @@ def phase_kernels(dev, card: str) -> dict:
         f"3, whole and in blocks of {block} rows, == plain "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    # each kernel alone at every step of the main paths' four-step plans:
-    # the first slice's 2^24 transform, the header_range path's (512, 2^17)
-    # coset LDE block and its (2664, 2^14) trace iNTT, and the aggregated
-    # rotate's per-coset transform of the machine's widest committed group
-    # (its 50 constant columns at 2^20 rows, on coset 1 of 2^23)
+    # each kernel alone at every step of the main paths' plans: the first
+    # slice's 2^24 transform, the header_range path's (512, 2^17) coset
+    # transform and its LDE block from (512, 2^14) coefficients (K3, K4),
+    # its (2664, 2^14) trace iNTT, and the aggregated rotate's per-coset
+    # transform of the machine's widest committed group (its 50 constant
+    # columns at 2^20 rows, on coset 1 of 2^23)
+    t0 = time.perf_counter()
     S = cuda_ntt.S_BITS
     m_rows, m_shift = machine.N_CONSTS, stages.coset_shift(1, 23)
     plans = {"2^24": (1, 24, False, gl.GENERATOR),
              "lde": (block, 17, False, gl.GENERATOR),
              "intt": (rows_n, 14, True, None),
-             "machine": (m_rows, 20, False, m_shift)}
+             "machine": (m_rows, 20, False, m_shift),
+             "lde coeffs": (block, 14, 3, gl.GENERATOR)}
     steps_in, plan_inputs = {}, {}
     for key, (batch, log_n, inverse, shift) in plans.items():
         x = random_field(rng, (batch, 1 << log_n), dev)
+        if key == "lde coeffs":     # `inverse` holds the rate here
+            steps = cuda_ntt.plan_lde(x, inverse, shift, S)
+            want = cuda_ntt.coset_lde_plain(x, inverse, shift)
+        else:
+            steps = cuda_ntt.plan(x, log_n, inverse, shift, S)
+            want = cuda_ntt.transform_plain(x, log_n, inverse, shift)
         cur = x
-        for i, (kind, *args) in enumerate(
-                cuda_ntt.plan(x, log_n, inverse, shift, S)):
-            if kind == "k1":
-                out = cuda_ntt.ntt_tile(cur, *args)
-                same(out, cuda_ntt.ntt_tile_plain(cur, *args),
-                     f"ntt_tile alone, {key} step {i}")
-            else:
-                out = cuda_ntt.transpose(cur, *args)
-                same(out, cuda_ntt.transpose_plain(cur, *args),
-                     f"ntt_transpose alone, {key} step {i}")
+        for i, (kind, *args) in enumerate(steps):
+            out = cuda_ntt.KERNELS[kind](cur, *args)
+            same(out, cuda_ntt.PLAIN[kind](cur, *args),
+                 f"{kind} alone, {key} step {i}")
             steps_in[key, i] = (kind, cur, args)
             cur = out
-        same(cur.reshape(x.shape),
-             cuda_ntt.transform_plain(x, log_n, inverse, shift),
-             f"four-step {key} chain")
+        same(cur.reshape(want.shape), want, f"{key} chain")
+        del want
         plan_inputs[key] = (x, log_n, inverse, shift)
-    log(f"phase 1: every K1/K2 step of the 2^24, ({block}, 2^17) and "
-        f"({m_rows}, 2^20) coset plans and of the ({rows_n}, 2^14) iNTT plan "
-        f"== its plain version")
+    log(f"phase 1: every K1/K4 step of the 2^24, ({block}, 2^17) and "
+        f"({m_rows}, 2^20) coset plans and of the ({rows_n}, 2^14) iNTT "
+        f"plan, and the K3/K4 steps of the ({block}, 2^14 -> 2^17) LDE, "
+        f"== its plain version ({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
 
     # times at the main paths' shapes, each beside its bound, its plain
-    # version and the first version's recorded time
+    # version and the first version's recorded time; every transform
+    # beside the three-pass route (K1, K1, K2; the LDE padded first)
+    # on the same inputs.  A bound is a function of the shape alone: 16 B
+    # an element and `three_pass_mads` (an LDE: 8 B an input and output
+    # element, the padded transform's multiply-adds)
     x24 = plan_inputs["2^24"][0]
     clock = sm_clock_mhz(lambda: cuda_ntt.transform(x24, 24, False), 600)
     log(f"phase 1: SM clock under load {clock:.0f} MHz; bounds: bytes at "
@@ -491,17 +573,21 @@ def phase_kernels(dev, card: str) -> dict:
     timed = {}
 
     def report(label, fn, plain, nbytes, mads, library=None):
+        """`plain` a function to time, the time of the same function on
+        the same inputs from an earlier row, or None: not timed."""
         ms = cuda_ms(fn)
-        plain_ms = cuda_ms(plain, 3)
+        plain_ms = plain if isinstance(plain, float) or plain is None \
+            else cuda_ms(plain, 3)
         lib_ms = cuda_ms(library) if library is not None else None
         b_ms, by = bound_ms(nbytes, mads, clock)
         other = (f"operations {mads / (SMS * INT_LANES * clock * 1e6) * 1e3:.4f}"
                  if by == "bytes" else
                  f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}")
         lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
+        plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
         log(f"phase 1: {label}: {ms:.4f} ms; bound {b_ms:.4f} ms ({by}; "
             f"{other} ms), share {b_ms / ms * 100:.1f} %; plain "
-            f"{plain_ms:.3f} ms{lib}; first version: "
+            f"{plain_txt}{lib}; first version: "
             f"{FIRST_MS.get(label, 'not recorded')}"
             f"  [{card}]")
         timed[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -510,43 +596,113 @@ def phase_kernels(dev, card: str) -> dict:
     def step(label, key, i):
         kind, src, args = steps_in[key, i]
         if kind == "k1":
-            report(label, lambda: cuda_ntt.ntt_tile(src, *args),
-                   lambda: cuda_ntt.ntt_tile_plain(src, *args),
-                   16 * src.numel(), k1_mads(*args))
-        else:
-            b, R, C = args
-            report(label, lambda: cuda_ntt.transpose(src, *args),
-                   lambda: cuda_ntt.transpose_plain(src, *args),
-                   16 * src.numel(), 0,
-                   library=lambda: src.reshape(b, R, C).transpose(1, 2)
-                   .contiguous())
+            mads = k1_mads(*args)
+        elif kind == "k4":             # K1's row step, stored transposed
+            b, C, log_n, tw, post, scale = args
+            mads = k1_mads(b, C, log_n, False, tw, None, post, False, scale)
+        else:                          # the padded column step's count
+            mads = k1_mads(*args[:-1], 1)
+        nbytes = 16 * src.numel() if kind != "k3" else \
+            8 * (src.numel() + (args[0] * args[1] << args[2]))
+        report(label, lambda: cuda_ntt.KERNELS[kind](src, *args),
+               lambda: cuda_ntt.PLAIN[kind](src, *args), nbytes, mads)
 
+    def three_pass_steps(label, key, k4_label):
+        """The three-pass route's row step (K1) and K2 after the same
+        column step."""
+        _, src, args = steps_in[key, 0]
+        y = cuda_ntt.ntt_tile(src, *args)
+        b, R, c, tw, post, scale = steps_in[key, 1][2]
+        row = (y, b, R, c, False, tw, None, post, False, scale)
+        # its plain version: the K4 row's arithmetic, stored untransposed
+        report(f"K1 {label} row step (three-pass route)",
+               lambda: cuda_ntt.ntt_tile(*row),
+               timed[k4_label]["plain_ms"], 16 * y.numel(),
+               k1_mads(*row[1:]))
+        z = cuda_ntt.ntt_tile(*row)
+        report(f"K2 {label} (three-pass route)",
+               lambda: cuda_ntt.transpose(z, b, R, 1 << c),
+               lambda: cuda_ntt.transpose_plain(z, b, R, 1 << c),
+               16 * z.numel(), 0,
+               library=lambda: z.reshape(b, R, 1 << c).transpose(1, 2)
+               .contiguous())
+
+    lde_block = f"({block}, 2^14 -> 2^17)"
     step("K1 (512, 2^17) column step", "lde", 0)
-    step("K1 (512, 2^17) row step", "lde", 1)
-    step("K2 (512, 2^17)", "lde", 2)
+    step("K4 (512, 2^17) row step", "lde", 1)
+    three_pass_steps("(512, 2^17)", "lde", "K4 (512, 2^17) row step")
+    step(f"K3 {lde_block} LDE column step", "lde coeffs", 0)
+    step(f"K4 {lde_block} LDE row step", "lde coeffs", 1)
     step("K1 2^12 x 2^12 column step", "2^24", 0)
-    step("K1 2^12 rows x 2^12", "2^24", 1)
-    step("K2 2^12 x 2^12", "2^24", 2)
+    step("K4 2^12 rows x 2^12", "2^24", 1)
+    three_pass_steps("2^12 x 2^12", "2^24", "K4 2^12 rows x 2^12")
     step(f"K1 ({rows_n}, 2^14) iNTT column step", "intt", 0)
-    step(f"K1 ({rows_n}, 2^14) iNTT row step", "intt", 1)
+    step(f"K4 ({rows_n}, 2^14) iNTT row step", "intt", 1)
     step(f"K1 ({m_rows}, 2^20) coset column step", "machine", 0)
-    step(f"K1 ({m_rows}, 2^20) coset row step", "machine", 1)
-    step(f"K2 ({m_rows}, 2^20)", "machine", 2)
+    step(f"K4 ({m_rows}, 2^20) coset row step", "machine", 1)
+    three_pass_steps(f"({m_rows}, 2^20)", "machine",
+               f"K4 ({m_rows}, 2^20) coset row step")
 
     whole = [(f"NTT ({b}, 2^{log_n})", random_field(rng, (b, 1 << log_n), dev),
               log_n, False, None) for b, log_n in TIMED]
+    # 2^26 (K4 at its narrowest tile, 2 rows) is past the sweep's sizes:
+    # each step against its plain version, whose tables are K1-sized (the
+    # plain transform's 2^26-entry tables would stay cached on the card,
+    # 2 GiB under every later phase's peak)
+    x26 = whole[-1][1]
+    for inverse in (False, True):
+        cur = x26
+        for kind, *args in cuda_ntt.plan(x26, 26, inverse, gl.GENERATOR, S):
+            out = cuda_ntt.KERNELS[kind](cur, *args)
+            same(out, cuda_ntt.PLAIN[kind](cur, *args),
+                 f"{kind} alone, 2^26 coset inv={inverse}")
+            cur = out
     whole.append((f"iNTT ({rows_n}, 2^14)",) + plan_inputs["intt"])
     whole.append((f"coset LDE block ({block}, 2^17)",) + plan_inputs["lde"])
     whole.append((f"machine coset transform ({m_rows}, 2^20)",)
                  + plan_inputs["machine"])
     for label, x, log_n, inverse, shift in whole:
-        mads = sum(k1_mads(*st[1:]) for st in
-                   cuda_ntt.plan(x, log_n, inverse, shift, S) if st[0] == "k1")
+        mads = three_pass_mads(x.numel() >> log_n, log_n, inverse, shift)
+        # the plain transform at 2^26 would leave its tables on the card
+        plain = None if log_n > 24 else \
+            lambda: cuda_ntt.transform_plain(x, log_n, inverse, shift)
         report(label, lambda: cuda_ntt.transform(x, log_n, inverse, shift),
-               lambda: cuda_ntt.transform_plain(x, log_n, inverse, shift),
-               16 * x.numel(), mads)
+               plain, 16 * x.numel(), mads)
+        report(f"{label} three-pass route",
+               lambda: three_pass_transform(x, log_n, inverse, shift),
+               timed[label]["plain_ms"], 16 * x.numel(), mads)
+    c, _, rate, shift = plan_inputs["lde coeffs"]
+    mads = three_pass_mads(block, 14 + rate, False, shift)
+    nbytes = 8 * (c.numel() + (c.numel() << rate))
+    report(f"LDE {lde_block}", lambda: cuda_ntt.coset_lde(c, rate, shift),
+           lambda: cuda_ntt.coset_lde_plain(c, rate, shift), nbytes, mads)
+    report(f"LDE {lde_block} three-pass route (pad first)",
+           lambda: three_pass_lde(c, rate, shift),
+           timed[f"LDE {lde_block}"]["plain_ms"], nbytes, mads)
+
+    # the transient peak of one LDE chunk of `stages.LDE_CHUNK_ELEMS`
+    # (coefficients standing), K3 + K4 against the three-pass route, in
+    # turns
+    peaks = {}
+    for name, fn in (
+            ("K3 + K4", lambda: stages.coset_lde_rows(c, 1 << 17)),
+            ("three-pass route", lambda: three_pass_lde(c, rate, shift))) * 2:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        peaks.setdefault(name, []).append(
+            (torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+        del out
+    log(f"phase 1: transient peak device memory of one {lde_block} LDE "
+        f"chunk above its coefficients: K3 + K4 (stages.coset_lde_rows) "
+        f"{peaks['K3 + K4']} GiB, three-pass route (pad + K1, K1, K2) "
+        f"{peaks['three-pass route']} GiB  [{card}]")
     torch.cuda.synchronize()
-    return {"worst": worst, "timed": timed}
+    log(f"phase 1: the times and peaks took {time.perf_counter() - t0:.2f} s")
+    return {"worst": worst, "timed": timed, "lde_peaks": peaks,
+            "lde_block": lde_block}
 
 
 # ---------------------------------------------------------------------------
@@ -656,14 +812,19 @@ def reset_launches() -> None:
         cuda_ntt.LAUNCHES[name] = 0
 
 
-def read_launches(path: str, need=None) -> dict:
-    """The kernel launch counts since `reset_launches`; every kernel (or
-    every one named in `need`) must have launched on `path`."""
+# The kernels of the proving paths: K1 (every transform), K4 (every one
+# past 2^13 points), K3 (every coset LDE).  K2 is on no plan.
+PATH_KERNELS = ("ntt_tile", "ntt_tile_t", "ntt_tile_lde")
+
+
+def read_launches(path: str, need=PATH_KERNELS) -> dict:
+    """The kernel launch counts since `reset_launches`; every kernel named
+    in `need` must have launched on `path`."""
     from vectorx_tpu_torch.ntt import cuda_ntt
 
     counts = dict(cuda_ntt.LAUNCHES)
     for name, count in counts.items():
-        if count <= 0 and (need is None or name in need):
+        if count <= 0 and name in need:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{path} path")
     return counts
@@ -2017,7 +2178,7 @@ def phase_public_bind(dev, card: str, zk, cfg, out_dir: str) -> dict:
     # at tree 8 each of these LDEs is one tile (2^13 points at most), so
     # only K1 runs on this path
     launches = read_launches("public bind and zk_merkle",
-                             need=("ntt_tile",))
+                             need=("ntt_tile", "ntt_tile_lde"))
     if verify_merkle_root(dataclasses.replace(mp, root=bytes(32)), cfg,
                           device=dev):
         raise AssertionError("zk_merkle: tampered root accepted")
@@ -2581,7 +2742,7 @@ def phase_fpmul(dev, card: str, cfg, out_dir: str) -> dict:
             f"{t_ver:.3f} s; a tampered {' and '.join(tampers)} rejected  "
             f"[{card}]")
     # a 2^13-point LDE is one tile: only K1 runs on this path
-    launches = read_launches("FpMulAir", need=("ntt_tile",))
+    launches = read_launches("FpMulAir", need=("ntt_tile", "ntt_tile_lde"))
     log(f"phase 15: kernel launches on the FpMulAir path (proves and "
         f"verifies): {launches}")
     air, small = fpmul_identity_statement()
@@ -3153,7 +3314,7 @@ P17_DEADLINE_S = 240
 P17_PROBE_S = 60
 # the shapes: the four-step's sides (2^12: N = 2^24, the succinct machines'
 # LDE; 2^6: small enough for the plain transform), the prover step's trace
-# length (LDE 2^17, so K2 runs), FibonacciAir's log_n (cut from the
+# length (LDE 2^17, so K3 and K4 run), FibonacciAir's log_n (cut from the
 # production statements' 2^20 and up to fit the phase's minute), and
 # header_range_256's headers per proof, authorities and header bytes bound
 # — its 256 headers cut to 64 (8 leaves): a leaf's 280 fixed Blake2b
@@ -3187,7 +3348,7 @@ def p17_count_gathers(mesh) -> list:
 
 @contextlib.contextmanager
 def p17_quotient_launches(launches: dict):
-    """Add to `launches` the K1/K2 launches made inside
+    """Add to `launches` the kernel launches made inside
     `ntt_sharded.coset_intt_blocks` (the sharded quotient iNTT) while
     active."""
     from vectorx_tpu_torch.ntt import cuda_ntt
@@ -3242,7 +3403,7 @@ def p17_lowered_bound(bound: int):
 
 def p17_four_step(mesh, say, card: str) -> dict:
     """`four_step_ntt` at N = 2^24 (R = C = 2^12), forward and inverse, each
-    equal to the single-device K1/K2 transform of the same polynomial read
+    equal to the single-device K1/K4 transform of the same polynomial read
     in transposed digit order; at R = C = 2^6 equal to the plain torch
     transform; the all_to_all timed beside the comm model.  Returns the
     launches of the two 2^24 transforms."""
@@ -3280,7 +3441,7 @@ def p17_four_step(mesh, say, card: str) -> dict:
                 for name, n in got.items():
                     launches[name] += n
                 want = cuda_ntt.transform(flat, 2 * log_side, inverse)
-                what = "the single-device K1/K2 transform"
+                what = "the single-device K1/K4 transform"
             else:
                 want = cuda_ntt.transform_plain(flat, 2 * log_side, inverse)
                 what = "the plain torch transform"
@@ -3317,7 +3478,7 @@ def p17_four_step(mesh, say, card: str) -> dict:
 
 def p17_prover_step(mesh, say, card: str) -> dict:
     """The sharded prover step at B = 2 traces per rank, W = 8, n = 2^14
-    (LDE 2^17: K1 and K2): roots and checksum equal to one rank's
+    (LDE 2^17: K3 and K4): roots and checksum equal to one rank's
     unsharded computation of all the traces."""
     import numpy as np
     import torch
@@ -3367,7 +3528,7 @@ def p17_prove(mesh, path: str, say, card: str, gathered: list) -> dict:
     to `<dir>/sharded_proof.json` (`p17_references` holds it against the
     unsharded card proof).  With its collectives, the elements this rank
     sent into all_gathers, its peak device memory above what it held
-    before, and the K1/K2 launches of the sharded quotient iNTT."""
+    before, and the kernel launches of the sharded quotient iNTT."""
     import torch
 
     from vectorx_tpu_torch.parallel.scheduler import CheckpointStore
@@ -3448,9 +3609,10 @@ def p17_bound(mesh, path: str, say, card: str, gathered: list) -> dict:
         proof, _ = prove_sharded(air, air.build_trace(), cfg, mesh)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    # K1 only: every transform of this statement is under 2^14 points
+    # K1 and K3 only: every transform of this statement is under 2^14
+    # points
     launches = read_launches("sharded prove past the bound",
-                             need=["ntt_tile"])
+                             need=["ntt_tile", "ntt_tile_lde"])
     if mesh.rank == 0:
         with open(os.path.join(path, "bound_proof.json"), "w") as f:
             f.write(json.dumps(proof_to_json(proof)))
@@ -3937,21 +4099,28 @@ def run_phases(dev, card: str, host: HostChecks | None, t_start: float,
     else:
         launches = run_main(dev, card, host, t_start, done)
 
-    # each kernel at the header_range path's (512, 2^17) coset LDE block,
-    # the main path's largest: K1's column step, K2's transpose
-    t1 = k["timed"]["K1 (512, 2^17) column step"]
-    t2 = k["timed"]["K2 (512, 2^17)"]
-    kernels = [
-        {"name": "ntt_tile", "route": "cuda",
-         "source": "vectorx_tpu_torch/csrc/ntt.cu",
-         "replaces": "vectorx_tpu/ntt/pallas_ntt.py:159",
-         "launches": launches["ntt_tile"], "max_abs_err": k["worst"], **t1},
-        {"name": "ntt_transpose", "route": "cuda",
-         "source": "vectorx_tpu_torch/csrc/ntt.cu",
-         "replaces": "vectorx_tpu/ntt/pallas_ntt.py:274",
-         "launches": launches["ntt_transpose"], "max_abs_err": k["worst"],
-         **t2},
-    ]
+    # K2 is on no transform's plan: it runs in phase 1's three-pass route
+    # only
+    if launches["ntt_transpose"]:
+        raise AssertionError(f"K2 launched {launches['ntt_transpose']} "
+                             f"times on the main paths")
+    # each kernel at the header_range path's (512, 2^17) LDE block, the
+    # main path's largest: K1's column step of its coset transform, K2 in
+    # that transform's three-pass route, K3 and K4 of the LDE from
+    # (512, 2^14)
+    lde_block = k["lde_block"]
+    rows = [("ntt_tile", "pallas_ntt.py:159", "K1 (512, 2^17) column step"),
+            ("ntt_transpose", "pallas_ntt.py:274",
+             "K2 (512, 2^17) (three-pass route)"),
+            ("ntt_tile_lde", "pallas_ntt.py:159",
+             f"K3 {lde_block} LDE column step"),
+            ("ntt_tile_t", "pallas_ntt.py:274",
+             f"K4 {lde_block} LDE row step")]
+    kernels = [{"name": name, "route": "cuda",
+                "source": "vectorx_tpu_torch/csrc/ntt.cu",
+                "replaces": f"vectorx_tpu/ntt/{where}",
+                "launches": launches[name], "max_abs_err": k["worst"],
+                **k["timed"][label]} for name, where, label in rows]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -66,7 +66,8 @@ def variants(src: str) -> dict[str, str]:
     end = src.index("// x^e = lo[e mod 2^L]")
     edits = {
         "C field ops": (src[start:end], C_FIELD_OPS),
-        "no butterflies": ("    radix<L, S0, E, FIRST>(x, klo, a.tw);\n", ""),
+        "no butterflies": ("    radix<L, S0, E, FIRST>(x, klo, a.tw, skip);\n",
+                           ""),
         "no products": ("if (!(FIRST && a == 0)) v = gl_mul(v, w[a]);",
                         "if (!(FIRST && a == 0)) v = v ^ w[a];"),
         "no add/sub": ("      x[t | (1 << q)] = gl_sub(x[t], v);\n"

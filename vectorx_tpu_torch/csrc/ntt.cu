@@ -2,10 +2,12 @@
 //
 // Replaces: vectorx_tpu/ntt/pallas_ntt.py — `_kernel` + `transform` (the
 // single-pass in-VMEM transform) and `transform_big` + `_dev_twiddle_grid`
-// (the four-step).  The TPU kernel's own limits (n <= 2^18 in one pass,
+// (the four-step), and the zero padding the reference's `ntt.lde` feeds
+// them.  The TPU kernel's own limits (n <= 2^18 in one pass,
 // 2^20 <= n <= 2^24 for the four-step) are VMEM's; the port's are these:
 // K1 transforms columns of length n <= 2^13 (VX_S_BITS), and the four-step
-// built from it covers n <= 2^26 (cuda_ntt.MAX_LOG_N).
+// built from it (K1 + K4, or K3 + K4 for an LDE) covers n <= 2^26
+// (cuda_ntt.MAX_LOG_N).
 //
 // What bounds it on the H100.  Not the bytes: a column of length n costs
 // n/2·log2(n) butterflies, each a Goldilocks product (a 64x64->128
@@ -30,9 +32,10 @@
 //    column length n (W = 8 up to n = 2^11, then 4 and 2, so the tile stays
 //    at <= 128 KB of shared memory; for short rows W grows to 2048/n).  A
 //    "column" is element i at i·C + c of a (n, C) block (the four-step's
-//    strided first step) or a contiguous row (C = 1 per batch item, and
-//    the four-step's second step); in both cases neighbouring threads read
-//    neighbouring addresses, so a warp reads whole 32-byte sectors.
+//    strided first step) or a contiguous row (C = 1 per batch item: a
+//    whole transform of up to 2^13 points); in both cases neighbouring
+//    threads read neighbouring addresses, so a warp reads whole 32-byte
+//    sectors.  K3 and K4 below run the same passes through `tile_pass`.
 //  * Butterflies in registers: each thread owns 8 elements and runs 3
 //    radix-2 DIT stages on them between shared-memory exchanges (radix-8;
 //    the last pass takes the 1-3 stages left), so a column of 2^12 takes 4
@@ -63,10 +66,47 @@
 //    (c + C·k) or the four-step's twiddle w^(c·k), so the four-step's first
 //    K1 leaves its output twiddled in (b, R, C) order and needs no
 //    twiddled transpose.
+//  * K4 `ntt_tile_t`: the four-step's row pass, K1's code on contiguous
+//    rows (coset^-1 power and n^-1 on store) with its last pass mapped
+//    column-fast and stored transposed: Z[k1][k2] goes straight to its
+//    natural index k1 + R·k2.  A block holds W >= 8 adjacent rows k1
+//    (W = 4 at C = 2^12, 2 at C = 2^13, where 8 rows would pass 227 KB),
+//    so for each k2 a warp writes whole runs of W·8 = 64 B (32 B, 16 B):
+//    full sectors except at C = 2^13 (n = 2^25, 2^26), where the other
+//    half of each 32-byte sector is written by the block of the
+//    neighbouring rows (phase 1 of chip_smoke.py times NTT (1, 2^26)
+//    beside the three-pass route).  The
+//    store goes from registers with plain coalesced st.global, not TMA:
+//    the values leave the last radix pass in registers, and a TMA store
+//    would first write the tile back to shared memory and wait on a
+//    barrier, one more shared round trip for sectors that are already
+//    whole.  The col_xor swizzle keeps that column-fast pass's
+//    shared-memory reads conflict-free up to W = 8, as in K1's col layout.
+//    So the four-step for 2^13 < n <= 2^26 is two passes over device
+//    memory: K1 down the columns (coset on load, twiddle on store), K4.
+//    K4 costs about what K1's row step costs (0.679 against 0.663 ms at
+//    the (512, 2^17) block, chip_smoke.py phase 1, H100 80GB HBM3 at
+//    700 W); K2's whole pass (0.405 ms there) is gone.
+//  * K3 `ntt_tile_lde`: the coset LDE's first pass, from the coefficients
+//    (b, n) without their zero padding to N = n << rate.  In the
+//    four-step's (R, C) view column c's element r sits at r·C + c, nonzero
+//    only for r < n/C, and those are the coefficient row's own elements;
+//    K3 reads them only (no padded tensor exists) and multiplies only them
+//    by the coset power.  After DIT's bit reversal only every 2^rate-th
+//    position of a column holds a coefficient, so the first min(rate, 3)
+//    stages of its first radix-8 pass are copies, not butterflies: a group
+//    loads 8 >> rate values (one at rate 3) and replicates them.  It
+//    stores twiddled in (b, R, C) order as K1's column step does, and K4
+//    finishes; up to 2^13 points the same kernel runs the whole LDE on
+//    contiguous rows.  Bound on the H100 as K1 is, by the butterflies'
+//    instructions: at rate 3 and R = 2^8, 3 of the column's 8 stages go
+//    (0.707 against K1's 0.956 ms at the (512, 2^14 -> 2^17) block), and
+//    the LDE is K3 + K4, 1.389 ms, against pad + K1 + K1 + K2, 2.169 ms.
+//    Where n < C (rate > log2 N / 2) a column holds at most one
+//    coefficient, its r = 0 (none for c >= n), and loads only that.
 //  * K2 `ntt_transpose`: a 32x32 tiled shared-memory transpose of (R, C)
-//    blocks.  The four-step for 2^13 < n <= 2^26 is three passes over
-//    device memory: K1 down the columns (coset on load, twiddle on store),
-//    K1 along the rows (coset^-1 and n^-1 on store), K2.
+//    blocks.  On no transform's plan since K4; kept for the comparison of
+//    phase 1 and scripts/ntt_k1_limits.py.
 //  * Powers x^e come from two 4096-entry tables, x^e = lo[e mod 2^12] ·
 //    hi[e >> 12], built on the host with exact integers, so no table grows
 //    with n.
@@ -175,10 +215,13 @@ __device__ __forceinline__ uint64_t pow_at(const Pow2& p, uint32_t e) {
   return gl_mul(__ldg(p.lo + (e & ((1u << p.L) - 1))), __ldg(p.hi + (e >> p.L)));
 }
 
-// One K1 launch.  Column gc of the ncols = batch·C columns is column
-// c = gc mod C of batch item b = gc / C; its element i sits at
-// b·n·C + i·C + c (col) or b·n·C + c·n + i (rows).  The output has the
-// input's layout.
+// One launch of K1, K3 or K4.  Column gc of the ncols = batch·C columns
+// is column c = gc mod C of batch item b = gc / C; its element i sits at
+// b·n·C + i·C + c (col) or b·n·C + c·n + i (rows).  K1 stores in the
+// layout it loads; K4 loads rows and stores element k at b·n·C + k·C + c;
+// K3 loads from items of n·C >> rate elements (the coefficients without
+// their zero padding; element i of column c only where c + C·i is below
+// that size) and stores as K1.
 struct K1Args {
   const uint64_t* in;
   uint64_t* out;
@@ -191,7 +234,10 @@ struct K1Args {
   Pow2 post;          // times post^(c + C·k), or post^(c·k) if post_twiddle
   int post_twiddle;
   uint64_t scale;     // times scale on store (folded into post)
+  int rate;           // K3: log2 of the padding factor
 };
+
+enum Mode { K1 = 0, K4 = 1, K3 = 2 };
 
 template <int B>
 __device__ __forceinline__ uint32_t rev(uint32_t x) {
@@ -224,11 +270,22 @@ __device__ __forceinline__ uint32_t col_xor(uint32_t w, int logW) {
 // E radix-2 DIT stages S0 .. S0+E-1 on x[t] = element klo + t·2^S0 (+ a
 // constant): pairs (t, t + 2^q) with twiddle w_n^((klo + (t mod 2^q)·2^S0)
 // · 2^(L-1-S0-q)).  In the first pass klo = 0 and w^0 = 1 needs no product.
+// The first `skip` stages act on inputs of which only every 2^skip-th is
+// loaded (the others are zeros of K3's padding): such a stage leaves both
+// outputs of a pair equal to its upper input, a copy instead of a
+// butterfly.
 template <int L, int S0, int E, bool FIRST>
 __device__ __forceinline__ void radix(uint64_t (&x)[1 << E], uint32_t klo,
-                                      const uint64_t* __restrict__ tw) {
+                                      const uint64_t* __restrict__ tw,
+                                      int skip) {
 #pragma unroll
   for (int q = 0; q < E; ++q) {
+    if (q < skip) {
+#pragma unroll
+      for (int t = 0; t < (1 << E); ++t)
+        if (!(t & (1 << q))) x[t | (1 << q)] = x[t];
+      continue;
+    }
     const int sh = L - 1 - S0 - q;
     uint64_t w[E > 0 ? 1 << (E - 1) : 1];
 #pragma unroll
@@ -249,17 +306,23 @@ __device__ __forceinline__ void radix(uint64_t (&x)[1 << E], uint32_t klo,
 // One pass of a tile: every (column w, group g) item holds 2^E elements.
 // The first pass loads from device memory, the last stores to it, the
 // others exchange through shared memory.  Items map column-fast where the
-// pass touches device memory in col layout (neighbouring threads take
-// neighbouring columns), group-fast otherwise.
-template <int L, int S0, int E, bool FIRST, bool LAST>
+// pass touches device memory across columns (neighbouring threads take
+// neighbouring columns: K1's and K3's loads and stores in col layout,
+// K4's transposed store), group-fast otherwise.
+template <int L, int S0, int E, bool FIRST, bool LAST, int MODE>
 __device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
   constexpr int LG = L - E;  // log2 of the items per column
   const uint32_t wmask = (1u << a.logW) - 1;
   const uint32_t items = 1u << (LG + a.logW);
-  const bool colfast = a.col && (FIRST || LAST);
+  const bool in_col = MODE != K4 && a.col;
+  const bool out_col = MODE == K4 || a.col;
+  const bool colfast = (FIRST && in_col) || (LAST && out_col);
   const long long col0 = (long long)blockIdx.x << a.logW;
   const uint32_t C = 1u << a.logC;
-  const uint32_t stride = a.col ? C : 1u;
+  const long long cell = (long long)C << L;  // elements of an output item
+  // K3: the first `skip` DIT stages see only zeros besides the loaded
+  // every-2^skip-th input, and 2^(E - skip) loads a group suffice
+  const int skip = (MODE == K3 && FIRST) ? (a.rate < E ? a.rate : E) : 0;
   for (uint32_t item = threadIdx.x; item < items; item += blockDim.x) {
     uint32_t w, g;
     if (colfast) {
@@ -272,8 +335,7 @@ __device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
     const long long gc = col0 + w;
     const bool live = gc < a.ncols;
     const uint32_t c = (uint32_t)gc & (C - 1);
-    const long long base = (gc >> a.logC) * ((long long)C << L) +
-                           (a.col ? (long long)c : (long long)c << L);
+    const long long bi = gc >> a.logC;
     uint64_t x[1 << E];
     uint32_t klo = 0;
     if constexpr (FIRST) {
@@ -282,24 +344,34 @@ __device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
       // the item's rank is i0 itself, so neighbouring threads read
       // neighbouring addresses.
       uint32_t i0;
-      if (a.col) {
+      if (in_col) {
         i0 = rev<LG>(g);
       } else {
         i0 = g;
         g = rev<LG>(g);
       }
+      const long long in_cell = MODE == K3 ? cell >> a.rate : cell;
+      const long long ibase =
+          bi * in_cell + (in_col ? (long long)c : (long long)c << L);
+      const uint32_t stride = in_col ? C : 1u;
       const bool pre = a.pre.lo != nullptr;
       uint64_t p = 0, step = 0;
       if (pre) {
         p = pow_at(a.pre, c + C * i0);
-        step = pow_at(a.pre, C << LG);
+        if (skip < E) step = pow_at(a.pre, C << LG);
       }
 #pragma unroll
       for (int u = 0; u < (1 << E); ++u) {
-        uint64_t v = live ? a.in[base + (i0 + ((uint32_t)u << LG)) * stride] : 0;
-        if (pre) {
-          v = gl_mul(v, p);
-          p = gl_mul(p, step);
+        uint64_t v = 0;
+        if (u < (1 << (E - skip))) {
+          const uint32_t i = i0 + ((uint32_t)u << LG);
+          bool ok = live;
+          if constexpr (MODE == K3) ok = ok && c + C * i < in_cell;
+          v = ok ? a.in[ibase + i * stride] : 0;
+          if (pre) {
+            if (u > 0) p = gl_mul(p, step);
+            v = gl_mul(v, p);
+          }
         }
         x[rev<E>(u)] = v;
       }
@@ -313,9 +385,12 @@ __device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
 #pragma unroll
       for (int t = 0; t < (1 << E); ++t) x[t] = buf[sb ^ swz((uint32_t)t << S0)];
     }
-    radix<L, S0, E, FIRST>(x, klo, a.tw);
+    radix<L, S0, E, FIRST>(x, klo, a.tw, skip);
     if constexpr (LAST) {
       // outputs k_t = klo + t·2^S0 (the last pass has hi = 0)
+      const long long obase =
+          bi * cell + (out_col ? (long long)c : (long long)c << L);
+      const uint32_t stride = out_col ? C : 1u;
       const bool post = a.post.lo != nullptr;
       uint64_t p = 0, step = 0;
       if (post) {
@@ -334,7 +409,7 @@ __device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
         } else if (a.scale != 1) {
           v = gl_mul(v, a.scale);
         }
-        if (live) a.out[base + (klo + ((uint32_t)t << S0)) * stride] = v;
+        if (live) a.out[obase + (klo + ((uint32_t)t << S0)) * stride] = v;
       }
     } else {
 #pragma unroll
@@ -345,22 +420,37 @@ __device__ __forceinline__ void tile_pass(const K1Args& a, uint64_t* buf) {
 
 __host__ __device__ constexpr int num_passes(int L) { return L <= 3 ? 1 : (L + 2) / 3; }
 
-template <int L, int p>
+template <int L, int p, int MODE>
 __device__ __forceinline__ void tile_passes(const K1Args& a, uint64_t* buf) {
   constexpr int P = num_passes(L);
   constexpr int S0 = 3 * p;
   constexpr int E = p == P - 1 ? L - S0 : 3;
-  tile_pass<L, S0, E, p == 0, p == P - 1>(a, buf);
+  tile_pass<L, S0, E, p == 0, p == P - 1, MODE>(a, buf);
   if constexpr (p + 1 < P) {
     __syncthreads();
-    tile_passes<L, p + 1>(a, buf);
+    tile_passes<L, p + 1, MODE>(a, buf);
   }
 }
 
+// K1: columns or rows in, the same layout out.
 template <int L>
 __global__ void __launch_bounds__(512) ntt_tile(K1Args a) {
   extern __shared__ uint64_t buf[];
-  tile_passes<L, 0>(a, buf);
+  tile_passes<L, 0, K1>(a, buf);
+}
+
+// K4: rows in, stored transposed (the four-step's last pass, natural order).
+template <int L>
+__global__ void __launch_bounds__(512) ntt_tile_t(K1Args a) {
+  extern __shared__ uint64_t buf[];
+  tile_passes<L, 0, K4>(a, buf);
+}
+
+// K3: the coset LDE's first pass, from coefficients without their padding.
+template <int L>
+__global__ void __launch_bounds__(512) ntt_tile_lde(K1Args a) {
+  extern __shared__ uint64_t buf[];
+  tile_passes<L, 0, K3>(a, buf);
 }
 
 constexpr int TILE = 32;
@@ -393,31 +483,84 @@ __global__ void ntt_transpose(const uint64_t* __restrict__ in,
 
 typedef void (*TileKernel)(K1Args);
 
-template <int L>
+template <int L, int MODE>
+TileKernel tile_kernel() {
+  if constexpr (MODE == K1) return ntt_tile<L>;
+  else if constexpr (MODE == K4) return ntt_tile_t<L>;
+  else return ntt_tile_lde<L>;
+}
+
+template <int L, int MODE>
 int launch_tile(const K1Args& a, long long blocks, int threads, size_t smem,
                 cudaStream_t stream) {
+  const TileKernel kernel = tile_kernel<L, MODE>();
   if (smem > 48 * 1024) {
     static bool raised = false;  // the attribute is per kernel, set once
     if (!raised) {
       cudaError_t e = cudaFuncSetAttribute(
-          ntt_tile<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, 128 * 1024);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 128 * 1024);
       if (e != cudaSuccess) return (int)e;
       raised = true;
     }
   }
-  ntt_tile<L><<<(unsigned)blocks, threads, smem, stream>>>(a);
+  K1Args arg = a;
+  void* args[] = {&arg};
+  cudaError_t e = cudaLaunchKernel((const void*)kernel, dim3((unsigned)blocks),
+                                   dim3(threads), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// log2 of K1's tile width for a column length 2^log_n: 2^(11 - log_n)
+// log2 of a tile's width for a column length 2^log_n: 2^(11 - log_n)
 // columns for short rows (2048 elements a tile), at least 8 adjacent
-// columns in col layout for whole 64-byte segments, at most 2^14 elements
+// columns where a pass touches device memory across columns (whole
+// 64-byte segments: col layout, K4's store), at most 2^14 elements
 // (128 KB) a tile.
-int tile_log_w(int log_n, int col) {
+int tile_log_w(int log_n, int colfast) {
   int lw = 11 - log_n;
-  if (col && lw < 3) lw = 3;
+  if (colfast && lw < 3) lw = 3;
   if (lw > 14 - log_n) lw = 14 - log_n;
   return lw < 0 ? 0 : lw;
+}
+
+int tile_smem(int log_n, int logW) {
+  if (num_passes(log_n) == 1) return 0;
+  return (int)sizeof(uint64_t) << (log_n + logW);
+}
+
+template <int MODE>
+int launch(K1Args a, int log_n, void* stream) {
+  if (log_n < 0 || log_n > VX_S_BITS || a.ncols < 0 || a.logC < 0 ||
+      a.logC + log_n > 2 * VX_S_BITS)
+    return (int)cudaErrorInvalidValue;
+  if (a.ncols == 0) return 0;
+  a.logW = tile_log_w(log_n, MODE == K4 || a.col);
+  const long long blocks = (a.ncols + (1ll << a.logW) - 1) >> a.logW;
+  if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  const long long elems = 1ll << (log_n + a.logW);
+  const int threads = elems >= 4096 ? 512 : 256;
+  const size_t smem = (size_t)tile_smem(log_n, a.logW);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (log_n) {
+    case 0: return launch_tile<0, MODE>(a, blocks, threads, smem, s);
+    case 1: return launch_tile<1, MODE>(a, blocks, threads, smem, s);
+    case 2: return launch_tile<2, MODE>(a, blocks, threads, smem, s);
+    case 3: return launch_tile<3, MODE>(a, blocks, threads, smem, s);
+    case 4: return launch_tile<4, MODE>(a, blocks, threads, smem, s);
+    case 5: return launch_tile<5, MODE>(a, blocks, threads, smem, s);
+    case 6: return launch_tile<6, MODE>(a, blocks, threads, smem, s);
+    case 7: return launch_tile<7, MODE>(a, blocks, threads, smem, s);
+    case 8: return launch_tile<8, MODE>(a, blocks, threads, smem, s);
+    case 9: return launch_tile<9, MODE>(a, blocks, threads, smem, s);
+    case 10: return launch_tile<10, MODE>(a, blocks, threads, smem, s);
+    case 11: return launch_tile<11, MODE>(a, blocks, threads, smem, s);
+    case 12: return launch_tile<12, MODE>(a, blocks, threads, smem, s);
+    default: return launch_tile<13, MODE>(a, blocks, threads, smem, s);
+  }
+}
+
+Pow2 pow2(const void* lo, const void* hi, int L) {
+  return Pow2{(const uint64_t*)lo, (const uint64_t*)hi, L};
 }
 
 }  // namespace
@@ -426,11 +569,11 @@ extern "C" {
 
 int vx_ntt_s_bits() { return VX_S_BITS; }
 
-// K1's dynamic shared memory per block: the tile, when it takes more than
-// one pass.
+// The dynamic shared memory per block of K1 and K3 (`col` their layout)
+// or K4 (col = 1): the tile, when it takes more than one pass.
 int vx_ntt_tile_smem(int log_n, int col) {
-  if (log_n < 0 || log_n > VX_S_BITS || num_passes(log_n) == 1) return 0;
-  return (int)sizeof(uint64_t) << (log_n + tile_log_w(log_n, col));
+  if (log_n < 0 || log_n > VX_S_BITS) return 0;
+  return tile_smem(log_n, tile_log_w(log_n, col));
 }
 
 // K1 launch.  Returns cudaGetLastError() (0 on success).
@@ -439,38 +582,41 @@ int vx_ntt_tile(const void* in, void* out, long long ncols, int logC, int col,
                 const void* pre_hi, int pre_L, const void* post_lo,
                 const void* post_hi, int post_L, int post_twiddle,
                 unsigned long long scale, void* stream) {
-  if (log_n < 0 || log_n > VX_S_BITS || ncols < 0 || logC < 0 ||
-      logC + log_n > 2 * VX_S_BITS)
+  return launch<K1>(
+      K1Args{(const uint64_t*)in, (uint64_t*)out, ncols, logC, col, 0,
+             (const uint64_t*)tw, pow2(pre_lo, pre_hi, pre_L),
+             pow2(post_lo, post_hi, post_L), post_twiddle, (uint64_t)scale,
+             0},
+      log_n, stream);
+}
+
+// K4 launch: rows of length 2^log_n, C = 2^logC of them an item, stored
+// transposed; times post^(c + C·k) and scale on store.
+int vx_ntt_tile_t(const void* in, void* out, long long ncols, int logC,
+                  int log_n, const void* tw, const void* post_lo,
+                  const void* post_hi, int post_L, unsigned long long scale,
+                  void* stream) {
+  return launch<K4>(
+      K1Args{(const uint64_t*)in, (uint64_t*)out, ncols, logC, 0, 0,
+             (const uint64_t*)tw, pow2(nullptr, nullptr, 0),
+             pow2(post_lo, post_hi, post_L), 0, (uint64_t)scale, 0},
+      log_n, stream);
+}
+
+// K3 launch: K1's column step (col) or whole rows (C = 1) of the zero-padded
+// coefficients, read from items of (C << log_n) >> rate elements.
+int vx_ntt_tile_lde(const void* in, void* out, long long ncols, int logC,
+                    int col, int log_n, const void* tw, const void* pre_lo,
+                    const void* pre_hi, int pre_L, const void* post_lo,
+                    const void* post_hi, int post_L, int post_twiddle,
+                    int rate, void* stream) {
+  if (rate < 0 || rate > logC + log_n || (!col && logC != 0))
     return (int)cudaErrorInvalidValue;
-  if (ncols == 0) return 0;
-  const int logW = tile_log_w(log_n, col);
-  const long long blocks = (ncols + (1ll << logW) - 1) >> logW;
-  if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
-  const long long elems = 1ll << (log_n + logW);
-  const int threads = elems >= 4096 ? 512 : 256;
-  const size_t smem = (size_t)vx_ntt_tile_smem(log_n, col);
-  K1Args a{(const uint64_t*)in, (uint64_t*)out, ncols, logC, col, logW,
-           (const uint64_t*)tw,
-           Pow2{(const uint64_t*)pre_lo, (const uint64_t*)pre_hi, pre_L},
-           Pow2{(const uint64_t*)post_lo, (const uint64_t*)post_hi, post_L},
-           post_twiddle, (uint64_t)scale};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (log_n) {
-    case 0: return launch_tile<0>(a, blocks, threads, smem, s);
-    case 1: return launch_tile<1>(a, blocks, threads, smem, s);
-    case 2: return launch_tile<2>(a, blocks, threads, smem, s);
-    case 3: return launch_tile<3>(a, blocks, threads, smem, s);
-    case 4: return launch_tile<4>(a, blocks, threads, smem, s);
-    case 5: return launch_tile<5>(a, blocks, threads, smem, s);
-    case 6: return launch_tile<6>(a, blocks, threads, smem, s);
-    case 7: return launch_tile<7>(a, blocks, threads, smem, s);
-    case 8: return launch_tile<8>(a, blocks, threads, smem, s);
-    case 9: return launch_tile<9>(a, blocks, threads, smem, s);
-    case 10: return launch_tile<10>(a, blocks, threads, smem, s);
-    case 11: return launch_tile<11>(a, blocks, threads, smem, s);
-    case 12: return launch_tile<12>(a, blocks, threads, smem, s);
-    default: return launch_tile<13>(a, blocks, threads, smem, s);
-  }
+  return launch<K3>(
+      K1Args{(const uint64_t*)in, (uint64_t*)out, ncols, logC, col, 0,
+             (const uint64_t*)tw, pow2(pre_lo, pre_hi, pre_L),
+             pow2(post_lo, post_hi, post_L), post_twiddle, 1, rate},
+      log_n, stream);
 }
 
 // K2 launch.

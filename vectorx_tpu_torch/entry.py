@@ -11,17 +11,14 @@ import torch
 
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hash import poseidon
-from vectorx_tpu_torch.ntt import coset_ntt, intt
+from vectorx_tpu_torch.ntt import coset_lde, intt
 
 W, LOG_N, RATE_BITS = 8, 8, 3
 
 
 def forward(trace: torch.Tensor) -> torch.Tensor:
     """(W, n) trace on any device -> its (4,) Merkle root (non-canonical)."""
-    n = trace.shape[-1]
-    c = intt(trace)
-    c = torch.nn.functional.pad(c, (0, n * ((1 << RATE_BITS) - 1)))
-    leaves = coset_ntt(c).T                    # (8n, W) leaf rows
+    leaves = coset_lde(intt(trace), RATE_BITS).T   # (8n, W) leaf rows
     d = poseidon.hash_no_pad(leaves)
     while d.shape[0] > 1:
         d = poseidon.two_to_one(d[0::2], d[1::2])

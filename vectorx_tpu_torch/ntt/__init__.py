@@ -1,5 +1,6 @@
 from vectorx_tpu_torch.ntt.ntt import (
     coset_intt,
+    coset_lde,
     coset_ntt,
     intt,
     lde,
@@ -7,4 +8,5 @@ from vectorx_tpu_torch.ntt.ntt import (
     power_table,
 )
 
-__all__ = ["ntt", "intt", "coset_ntt", "coset_intt", "lde", "power_table"]
+__all__ = ["ntt", "intt", "coset_ntt", "coset_intt", "coset_lde", "lde",
+           "power_table"]

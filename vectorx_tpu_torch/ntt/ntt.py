@@ -5,11 +5,12 @@ Port of `vectorx_tpu.ntt.ntt`.  Conventions are the reference's:
 * `ntt` maps coefficients -> evaluations over the two-adic subgroup of size
   n in natural order (w^0, w^1, ..); `intt` is its inverse;
 * `coset_ntt`/`coset_intt` work on the coset shift·K; `lde` evaluates on
-  g·K with |K| = n << rate_bits, g = GENERATOR = 7.
+  g·K with |K| = n << rate_bits, g = GENERATOR = 7, and `coset_lde` does
+  the same from coefficients.
 
 Dispatch (`_transform`): a CUDA tensor goes to the hand-written kernel
-(`vectorx_tpu_torch.ntt.cuda_ntt.transform`), a CPU tensor to the plain
-stage-by-stage torch transform below.  There is no size floor and no
+(`vectorx_tpu_torch.ntt.cuda_ntt.transform`, `coset_lde`), a CPU tensor to
+the plain stage-by-stage torch transform below.  There is no size floor and no
 fallback: a CUDA tensor the kernel refuses raises.
 """
 
@@ -148,11 +149,25 @@ def coset_intt(x: torch.Tensor, shift: int = gl.GENERATOR) -> torch.Tensor:
     return _transform(x, _log2(x.shape[-1]), True, shift)
 
 
+def coset_lde(coeffs: torch.Tensor, rate_bits: int,
+              shift: int = gl.GENERATOR) -> torch.Tensor:
+    """Coefficients (…, n) -> evaluations on the coset shift·K with
+    |K| = n << rate_bits: `coset_ntt` of the coefficients padded with zeros.
+    On a CUDA tensor the kernels read the n coefficients only (K3, then K4
+    past 2^13 points) and no padded tensor exists; on a CPU tensor the
+    plain version pads."""
+    from vectorx_tpu_torch.ntt import cuda_ntt
+
+    x = coeffs.contiguous()
+    if x.is_cuda:
+        return cuda_ntt.coset_lde(x, rate_bits, shift)
+    if x.device.type != "cpu":
+        raise ValueError(f"no NTT for device {x.device}")
+    return cuda_ntt.coset_lde_plain(x, rate_bits, shift)
+
+
 def lde(values: torch.Tensor, rate_bits: int = 3,
         shift: int = gl.GENERATOR) -> torch.Tensor:
     """Evaluations on H (|H| = n, natural order) -> evaluations on the coset
     shift·K with |K| = n · 2^rate_bits."""
-    c = intt(values)
-    n = values.shape[-1]
-    c = torch.nn.functional.pad(c, (0, (n << rate_bits) - n))
-    return coset_ntt(c, shift)
+    return coset_lde(intt(values), rate_bits, shift)

@@ -13,7 +13,7 @@ For N = R·C with the C axis sharded over `p` ranks:
 Output: evaluations in "transposed digit order": X[k1 + R·k2] lives at
 logical position [k1, k2] of the (R, C) result, k1-sharded.  The inverse
 runs the same pipeline with inverse roots.  The local transforms are the
-port's `ntt`/`intt`, i.e. the K1/K2 kernels on CUDA tensors; leading
+port's `ntt`/`intt`, i.e. the K1/K4 kernels on CUDA tensors; leading
 batch dimensions ride along.
 
 `coset_intt_blocks` is the sharded prover's quotient interpolation: its

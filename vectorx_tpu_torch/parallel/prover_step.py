@@ -13,18 +13,17 @@ import torch
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hash import poseidon
 from vectorx_tpu_torch.merkle import _rows_blocked
-from vectorx_tpu_torch.ntt import coset_ntt, intt
+from vectorx_tpu_torch.ntt import coset_lde, intt
 from vectorx_tpu_torch.parallel.mesh import Mesh
 
 
 def local_roots(traces: torch.Tensor, rate_bits: int = 3) -> torch.Tensor:
-    """(b, W, n) traces -> (b, 4) canonical Merkle roots: iNTT, zero-pad,
-    coset LDE, a Poseidon hash of each LDE row's W values, then pairwise
-    `two_to_one` down to one digest per trace."""
+    """(b, W, n) traces -> (b, 4) canonical Merkle roots: iNTT, coset LDE
+    of the coefficients, a Poseidon hash of each LDE row's W values, then
+    pairwise `two_to_one` down to one digest per trace."""
     b, w, n = traces.shape
     blow = 1 << rate_bits
-    c = intt(traces)
-    lde = coset_ntt(torch.nn.functional.pad(c, (0, n * (blow - 1))))
+    lde = coset_lde(intt(traces), rate_bits)
     rows = lde.transpose(1, 2).reshape(b * n * blow, w)
     d = _rows_blocked(poseidon.hash_no_pad, rows).reshape(b, n * blow, 4)
     while d.shape[1] > 1:

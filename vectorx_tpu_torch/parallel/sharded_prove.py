@@ -12,9 +12,9 @@ group of R polynomials the share of ceil(R/p) rows from r·ceil(R/p)
 collectives:
 
 * commitment (constants, trace, aux, quotient): its polynomial share's
-  iNTT and coset LDE on K1/K2, then ONE all_to_all to its block of the
-  domain; it hashes its leaves and its block's subtree (the leaves are in
-  domain order, so a block is a subtree), and one all_gather of the
+  iNTT and coset LDE on K1, K3 and K4, then ONE all_to_all to its block
+  of the domain; it hashes its leaves and its block's subtree (the leaves
+  are in domain order, so a block is a subtree), and one all_gather of the
   subtree roots gives every rank the top of the tree and the cap; one
   all_gather of each rank's first `blowup` points gives the composition
   its next rows past the block.  The coefficients stay shares.

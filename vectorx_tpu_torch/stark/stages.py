@@ -33,7 +33,7 @@ from vectorx_tpu_torch.field import extension as ge
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.hash import poseidon
 from vectorx_tpu_torch.merkle import DeviceTree
-from vectorx_tpu_torch.ntt import coset_intt, coset_ntt, intt
+from vectorx_tpu_torch.ntt import coset_intt, coset_lde, coset_ntt, intt
 from vectorx_tpu_torch.ntt.ntt import _root_of_unity, device_powers
 
 P = gl.P
@@ -89,9 +89,9 @@ def intt_rows(x: torch.Tensor) -> torch.Tensor:
 
 def coset_lde_rows(c: torch.Tensor, N: int) -> torch.Tensor:
     """coeffs (rows, n) -> coset evaluations (rows, N), row-chunked."""
-    n = c.shape[-1]
-    return rows_chunked(
-        lambda a: coset_ntt(torch.nn.functional.pad(a, (0, N - n))), c, N)
+    rate_bits = (N // c.shape[-1]).bit_length() - 1
+    assert c.shape[-1] << rate_bits == N, "N must be n times a power of two"
+    return rows_chunked(lambda a: coset_lde(a, rate_bits), c, N)
 
 
 # ---------------------------------------------------------------------------
