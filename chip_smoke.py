@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`vectorx_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # phases 0-12 and 15-17
+    python3 chip_smoke.py               # phases 0-12 and 15-18
     python3 chip_smoke.py --succinct    # phases 0-2, 13 and 14
 
 Phases, each printed with its result and timing; any failed check raises,
@@ -103,8 +103,8 @@ so the script exits non-zero and prints no final line:
    `public_shape`'s constant columns equal to the full AIR's, and their
    proof JSON equal to the CPU's proofs of the same statements; and
    `prove_merkle_root` over phase 7's 8 state roots, verified, its root
-   equal to `sha256_merkle_root`'s, a tampered root rejected.  The parent
-   waits for the process before its summary; a non-zero exit, a missing
+   equal to `sha256_merkle_root`'s, a tampered root rejected; then phase
+   18 (below).  The parent waits for the process before its summary; a non-zero exit, a missing
    result line or a timeout fails the script.
 12. in a third process on the card (`--phase-12 <dir>`), started after
    phase 2 and run beside phases 3-11: the in-ZK GRANDPA justification of
@@ -183,6 +183,16 @@ so the script exits non-zero and prints no final line:
    K4 must have launched on the sharded paths; their launches, summed over
    the ranks, join the kernels line.  The ranks are killed and the script
    fails if one fails or the phase passes `P17_DEADLINE_S`.
+18. the standalone FRI low-degree proof, in phase 11's process after
+   phase 11: `fri.prove_low_degree` at `FriConfig()` on the card over the
+   coset LDE (`ntt.coset_lde`: K3 + K4) of a random extension polynomial
+   of degree < 2^20, a 2^23-point codeword (the length phase 9's machine
+   folds), with its stage seconds, peak device memory and launches (K1,
+   K3 and K4 must launch); `fri.fri_verify` accepts, and rejects copies
+   with a final coefficient changed, a query leaf changed and a fold layer
+   stripped; at 2^12 points a random codeword (over the degree bound)
+   raises in the prover, and the card's proof of a low-degree codeword
+   equals the CPU's field for field.
 
 With `--succinct` the script runs phases 0-2 and then, instead of phases
 3-12, 15 and 16, the succinct product pipeline (each statement takes
@@ -751,13 +761,14 @@ class StageTimer:
         from vectorx_tpu_torch.stark.sha256_air import Sha256Air
 
         ntt_mod = importlib.import_module("vectorx_tpu_torch.ntt.ntt")
+        fri = importlib.import_module("vectorx_tpu_torch.fri.fri")
         self.targets = [
             (Blake2bAir, "build_trace"), (Sha256Air, "build_trace"),
             (stages, "commit_rows"), (prover, "aux_witness"),
             (prover, "_composition"), (stages, "quotient_coeffs"),
             (stages, "deep_eval_groups"), (stages, "deep_compose"),
-            (stages, "fri_commit_layer"), (stages, "fri_fold"),
-            (stages, "fri_final_coeffs"), (stages, "grind"),
+            (fri, "fri_commit_layer"), (fri, "fri_fold"),
+            (fri, "fri_final_coeffs"), (fri, "grind"),
             (stages, "open_positions"), (ntt_mod, "_transform"),
             (poseidon, "permute"), *extra]
         self.times = {}
@@ -1624,6 +1635,7 @@ def phase_rotate(dev, card: str) -> dict:
 
     from vectorx_tpu_torch.circuits import DummyRotate, zk_rotate
     from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.fri import fri
     from vectorx_tpu_torch.hash.sha256 import chained_hash
     from vectorx_tpu_torch.io.abi import RotateInput
     from vectorx_tpu_torch.io.fixtures import FixtureChain
@@ -1692,7 +1704,7 @@ def phase_rotate(dev, card: str) -> dict:
     # and of the FRI codewords the streamed prover keeps on the host
     host = {"trees": 0, "codewords": 0}
     from_device = stages.HostTree.__dict__["from_device"]
-    spill = stages.spill_codeword
+    spill = fri.spill_codeword
 
     def tree_rec(tree):
         t = from_device.__get__(None, stages.HostTree)(tree)
@@ -1712,7 +1724,7 @@ def phase_rotate(dev, card: str) -> dict:
         (stages, "deep_compose_coset"), (stages, "to_coeffs"),
         (stages, "open_positions_host")])
     stages.HostTree.from_device = staticmethod(tree_rec)
-    stages.spill_codeword = spill_rec
+    fri.spill_codeword = spill_rec
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     try:
@@ -1721,7 +1733,7 @@ def phase_rotate(dev, card: str) -> dict:
         torch.cuda.synchronize()
     finally:
         stages.HostTree.from_device = from_device
-        stages.spill_codeword = spill
+        fri.spill_codeword = spill
     t_agg = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     prog = progcache.get(aggregate._stmt_key(airs, cfg))[0]
@@ -2192,11 +2204,150 @@ def phase_public_bind(dev, card: str, zk, cfg, out_dir: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the standalone FRI low-degree proof at the flagship's FRI length
+# ---------------------------------------------------------------------------
+
+# Degree bound 2^20, so a 2^23-point codeword at rate 3: the length phase
+# 9's 724,556-row aggregated-rotate machine (log_n 20) folds.  Not cut.
+FRI_LOG_N = 20
+# The length of the CUDA-against-CPU check and of the over-degree codeword
+# (the prover commits every layer before its degree check: 31.0 s at 2^23
+# alone, more than the script's margin holds).
+FRI_CHECK_LOG_LEN = 12
+
+
+def fri_fields(proof) -> dict:
+    """A FriProof as plain ints and lists, field for field."""
+    return {
+        "caps": [[[int(x) for x in d] for d in cap] for cap in proof.caps],
+        "final_coeffs": [(int(a), int(b)) for a, b in proof.final_coeffs],
+        "pow_witness": int(proof.pow_witness),
+        "query_rounds": [[([int(x) for x in st.pair],
+                           [[int(x) for x in d] for d in st.path])
+                          for st in r.steps] for r in proof.query_rounds]}
+
+
+def phase_fri(dev, card: str) -> dict:
+    """Phase 18: `fri.prove_low_degree` at `FriConfig()` on the card over
+    the coset LDE (`ntt.coset_lde`: K3 + K4) of a random extension
+    polynomial of degree < 2^FRI_LOG_N, verified by `fri.fri_verify`;
+    copies with a final coefficient changed, a query leaf changed and a
+    fold layer stripped rejected; at FRI_CHECK_LOG_LEN a codeword over
+    the degree bound raises and the card's proof equals the CPU's field
+    for field.  Returns the launches of the LDE and the prove."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vectorx_tpu_torch.field import goldilocks as gl
+    from vectorx_tpu_torch.fri import fri
+    from vectorx_tpu_torch.fri.transcript import Challenger
+    from vectorx_tpu_torch.ntt import coset_lde
+
+    cfg = fri.FriConfig()
+    log_len = FRI_LOG_N + cfg.rate_bits
+    rng = np.random.default_rng(18)
+
+    def random_rows(log_n, device):
+        return gl.from_u64(rng.integers(0, gl.P, size=(2, 1 << log_n),
+                                        dtype=np.uint64), device)
+
+    def prove(code, n_log):
+        return fri.prove_low_degree((code[0], code[1]), n_log, gl.GENERATOR,
+                                    cfg, Challenger())
+
+    def verify(proof):
+        return fri.fri_verify(proof, log_len, gl.GENERATOR, cfg, Challenger())
+
+    coeffs = random_rows(FRI_LOG_N, dev)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StageTimer(extra=[(fri, "open_query")])
+    t0 = time.perf_counter()
+    with timer:
+        code = coset_lde(coeffs, cfg.rate_bits)
+        torch.cuda.synchronize()
+        t_lde = time.perf_counter() - t0
+        proof = prove(code, log_len)
+        torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    launches = read_launches("standalone FRI")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del code
+    layers = cfg.num_fold_layers(log_len)
+    if (len(proof.caps), len(proof.query_rounds)) != (layers,
+                                                      cfg.num_queries):
+        raise AssertionError(f"FRI proof shape: {len(proof.caps)} layers, "
+                             f"{len(proof.query_rounds)} queries")
+    log(f"phase 18: prove_low_degree of a 2^{log_len}-point codeword (the "
+        f"coset LDE of a degree < 2^{FRI_LOG_N} extension polynomial, "
+        f"{t_lde:.3f} s) at FriConfig(): {t_prove:.3f} s with the LDE, "
+        f"{layers} fold layers, {cfg.num_queries} queries, pow witness "
+        f"{proof.pow_witness}; peak device memory {peak / 2**30:.3f} GiB  "
+        f"[{card}]")
+    log(f"phase 18: stage seconds (Poseidon runs inside the commits and the "
+        f"grind): {timer.summary()}")
+    log(f"phase 18: kernel launches on the standalone FRI path: {launches}")
+    t0 = time.perf_counter()
+    if not verify(proof):
+        raise AssertionError("fri_verify rejected the standalone FRI proof")
+    log(f"phase 18: fri_verify accepted in {time.perf_counter() - t0:.3f} s")
+
+    bad_final = copy.deepcopy(proof)
+    a, b = bad_final.final_coeffs[0]
+    bad_final.final_coeffs[0] = ((a + 1) % gl.P, b)
+    bad_leaf = copy.deepcopy(proof)
+    step = bad_leaf.query_rounds[0].steps[0]
+    step.pair = [(step.pair[0] + 1) % gl.P, *step.pair[1:]]
+    bad_layers = copy.deepcopy(proof)
+    bad_layers.caps = bad_layers.caps[:-1]
+    for what, bad in (("a final coefficient changed", bad_final),
+                      ("a query leaf changed", bad_leaf),
+                      ("a fold layer stripped", bad_layers)):
+        t0 = time.perf_counter()
+        if verify(bad):
+            raise AssertionError(f"fri_verify accepted {what}")
+        log(f"phase 18: {what}: rejected in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    try:
+        prove(random_rows(FRI_CHECK_LOG_LEN, dev), FRI_CHECK_LOG_LEN)
+    except AssertionError as e:
+        if "degree bound" not in str(e):
+            raise
+        log(f"phase 18: a random 2^{FRI_CHECK_LOG_LEN}-point codeword (over "
+            f"the degree bound) raised in the prover after "
+            f"{time.perf_counter() - t0:.3f} s: {e}")
+    else:
+        raise AssertionError("an over-degree codeword was proved")
+
+    small = random_rows(FRI_CHECK_LOG_LEN - cfg.rate_bits, "cpu")
+    t0 = time.perf_counter()
+    on_card = fri_fields(prove(coset_lde(small.to(dev), cfg.rate_bits),
+                               FRI_CHECK_LOG_LEN))
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = fri_fields(prove(coset_lde(small, cfg.rate_bits),
+                              FRI_CHECK_LOG_LEN))
+    if on_card != on_cpu:
+        diff = [k for k in on_cpu if on_card[k] != on_cpu[k]]
+        raise AssertionError(f"FRI proof at log_len {FRI_CHECK_LOG_LEN}: "
+                             f"the card's != the CPU's in {diff}")
+    log(f"phase 18: at log_len {FRI_CHECK_LOG_LEN} the card's proof == the "
+        f"CPU's field for field (caps, final coefficients, pow witness, "
+        f"{len(on_cpu['query_rounds'])} query rounds; card {t_card:.3f} s, "
+        f"CPU {time.perf_counter() - t0:.3f} s)")
+    return launches
+
+
 def phase11_child(path: str) -> dict:
     """`chip_smoke.py --phase-11 <dir>`: phase 16's hash chain and phase 8
     on the card, then phase 11 from phase 7's proof, once the parent has
-    handed it over in `<dir>`; returns the launches and the process's
-    seconds (imports included) for the last line."""
+    handed it over in `<dir>`, then phase 18; returns the launches and the
+    process's seconds (imports included) for the last line."""
     t_start = time.perf_counter()
     import torch
 
@@ -2231,8 +2382,13 @@ def phase11_child(path: str) -> dict:
     agg = phase_aggregated_header_range(dev, card, zk, cfg)
     release_card_memory(dev)
     pb = phase_public_bind(dev, card, zk, cfg, path)
+    release_card_memory(dev)
+    t0 = time.perf_counter()
+    fri_launches = phase_fri(dev, card)
+    log(f"phase 18: {time.perf_counter() - t0:.2f} s in the phase-11 "
+        f"process, to {time.perf_counter() - t_start:.2f} s since it started")
     return {"aggregated": agg, "public_bind": pb, "hash_chain": chain,
-            "seconds": time.perf_counter() - t_start}
+            "fri": fri_launches, "seconds": time.perf_counter() - t_start}
 
 
 class CardPhase:
@@ -2318,7 +2474,7 @@ def _time_left(t_start: float) -> float:
 class Phase11(CardPhase):
     """Phase 11's process, started after phase 2: phase 16's hash chain
     and phase 8 beside phases 3-7, then phase 11 beside phases 9-10, from
-    the proof that phase 7 hands over."""
+    the proof that phase 7 hands over, then phase 18."""
 
     def __init__(self, t_start: float):
         super().__init__(11, t_start, "phases 3-7, 9 and 10")
@@ -3980,7 +4136,7 @@ def main(succinct: bool) -> int:
 
 def run_main(dev, card: str, host: HostChecks, t_start: float,
              done) -> dict:
-    """Phases 3-12 and 15-17, with 8, 11 and the hash chain in the
+    """Phases 3-12 and 15-18, with 8, 11, the hash chain and 18 in the
     phase-11 process and 12, 15, the SHA tree and 17 in the phase-12
     process; returns the launches of every main path."""
     import numpy as np
@@ -4040,6 +4196,7 @@ def run_main(dev, card: str, host: HostChecks, t_start: float,
             p11_launches["aggregated"][name] + \
             p11_launches["public_bind"][name] + \
             p11_launches["hash_chain"]["launches"][name] + \
+            p11_launches["fri"][name] + \
             p12_launches["justification"][name] + \
             p12_launches["fpmul"][name] + \
             p12_launches["sha_tree"]["launches"][name] + \

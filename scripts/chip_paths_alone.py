@@ -3,12 +3,13 @@
 another, with nothing else on the card: their times without the other
 proving processes of the whole script beside them.
 
-    python3 scripts/chip_paths_alone.py 6,15,fpmul_cpu,tree,chain,17
+    python3 scripts/chip_paths_alone.py 6,15,fpmul_cpu,tree,chain,17,18
 
 6: phase 6 (ladder and MSM), its CPU side run here first; 15: phase 15
 (`FpMulAir`); fpmul_cpu: the `FpMulAir(9)` proof on the CPU against the
 one phase 15 wrote; tree / chain: phase 16's SHA-256 tree / hash chain;
-17: phase 17 (its two rank processes, the NCCL probe and the dry run).
+17: phase 17 (its two rank processes, the NCCL probe and the dry run);
+18: phase 18 (the standalone FRI at 2^23 points).
 Each step ends with a line of its seconds; a failed check raises.
 """
 
@@ -68,6 +69,8 @@ def main(steps) -> None:
             cs.phase_hash_chain(dev, card, cfg, out)
         elif step == "17":
             cs.phase_sharded(dev, card, out)
+        elif step == "18":
+            cs.phase_fri(dev, card)
         else:
             raise SystemExit(f"unknown step {step!r}")
         cs.log(f"== {step}: {time.perf_counter() - t0:.2f} s")

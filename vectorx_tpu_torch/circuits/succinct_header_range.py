@@ -45,6 +45,7 @@ machine program is cached by content (recursion/progcache.py).
 from __future__ import annotations
 
 import hashlib
+import logging
 from dataclasses import dataclass
 
 from vectorx_tpu_torch import scale
@@ -66,6 +67,8 @@ from vectorx_tpu_torch.stark.sha256_air import SECTION as SHA_SECTION
 from vectorx_tpu_torch.stark.sha256_air import Sha256Air, sha256_pad
 from vectorx_tpu_torch.stark.sha512_air import Sha512Air
 from vectorx_tpu_torch.stark.verifier import verify
+
+log = logging.getLogger(__name__)
 
 # trace-row budget per child proof (memory knob, not soundness-relevant;
 # the tape builder chunks deterministically so prover and verifier agree)
@@ -487,6 +490,7 @@ def _machine_prove(build_tape, key, outer_config, *, device):
     prog = compile_tape(b)
     progcache.put(key, prog)
     mair = MachineAir(prog)
+    log.info("  machine proof: %d rows x %d cols", mair.n, mair.width)
     return prove(mair, mair.build_trace(), outer_config, device=device)
 
 
@@ -586,12 +590,16 @@ def prove_header_range_succinct(fetcher, input_bytes: bytes,
 
     # ---- child proofs, in tape order --------------------------------------
     proofs = []
+    log.info("header_range prove: %d headers, tree_size=%d — child proofs",
+             len(headers), tree_size)
     pos = 0
     for csz in chunk_by_rows(stmt["header_lens"], _blake_rows,
                              MAX_CHILD_ROWS):
         air = Blake2bAir(headers[pos:pos + csz], bind="public")
         proofs.append(prove(air, air.build_trace(), config, device=device))
         pos += csz
+        log.info("  blake2b children: %d/%d headers (%d proofs so far)",
+                 pos, len(headers), len(proofs))
     for leaves in (state_leaves, data_leaves):
         for msgs, _ in levels(leaves):
             ni = 0
@@ -604,7 +612,10 @@ def prove_header_range_succinct(fetcher, input_bytes: bytes,
     final = _prove_chain(stmt["pubkeys"][:stmt["num_authorities"]], config,
                          proofs, device=device)
     assert final == inp.authority_set_hash, "authority set hash mismatch"
+    log.info("  tree and authority-commitment children done (%d proofs)",
+             len(proofs))
     _prove_justification_children(stmt, config, proofs, device=device)
+    log.info("  justification children done (%d proofs total)", len(proofs))
 
     # ---- the ONE machine proof --------------------------------------------
     cursor = _ProofCursor(proofs)
@@ -612,6 +623,7 @@ def prove_header_range_succinct(fetcher, input_bytes: bytes,
         lambda b: _range_tape(b, stmt, config, cursor, headers,
                               device=device),
         _stmt_prog_key(stmt, config), outer_config, device=device)
+    log.info("header_range prove: done")
     return SuccinctHeaderRangeProof(
         input_bytes=input_bytes, output_bytes=output_bytes,
         header_lens=stmt["header_lens"], tree_size=tree_size,

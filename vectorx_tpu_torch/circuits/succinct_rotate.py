@@ -32,6 +32,7 @@ names.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 from vectorx_tpu_torch import scale
@@ -48,6 +49,8 @@ from vectorx_tpu_torch.recursion.shadow import verifier_tape
 from vectorx_tpu_torch.recursion.ssa import Affine, Builder
 from vectorx_tpu_torch.stark.blake2b_air import Blake2bAir, blake2b_pad
 from vectorx_tpu_torch.stark.prover import StarkConfig, prove
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -268,6 +271,8 @@ def prove_rotate_succinct(fetcher, input_bytes: bytes,
 
     # ---- child proofs, in tape order --------------------------------------
     proofs = []
+    log.info("rotate prove: %d-B epoch-end header, %d authorities — "
+             "child proofs", len(header), rd.num_authorities)
     air = Blake2bAir([header], bind="public")
     assert air.digest_bytes_list()[0] == \
         scale.decode_precommit(j.signed_message)[0]
@@ -276,6 +281,7 @@ def prove_rotate_succinct(fetcher, input_bytes: bytes,
         _prove_chain(pks, config, proofs, device=device)
     _prove_justification_children(_justification_stmt(stmt), config, proofs,
                                   device=device)
+    log.info("rotate prove: %d child proofs done", len(proofs))
 
     # ---- the ONE machine proof --------------------------------------------
     cursor = _ProofCursor(proofs)
@@ -283,6 +289,7 @@ def prove_rotate_succinct(fetcher, input_bytes: bytes,
         lambda b: _rotate_tape(b, stmt, config, cursor, header,
                                device=device),
         _stmt_prog_key(stmt, config), outer_config, device=device)
+    log.info("rotate prove: done")
     return SuccinctRotateProof(
         input_bytes=input_bytes, output_bytes=out.encode(),
         machine_proof=machine_proof, **{k: meta[k] for k in _META})

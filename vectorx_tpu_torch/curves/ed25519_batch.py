@@ -158,6 +158,10 @@ def mul(a, b):
     return _fold_n(_carry16(cols, 36), 3)
 
 
+def sqr(a):
+    return mul(a, a)
+
+
 def canonical(a):
     """Fully reduce semi-reduced (< 2^256) limbs into [0, q)."""
     def cond_sub(x, k):

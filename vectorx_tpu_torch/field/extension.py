@@ -9,6 +9,7 @@ limbs).  FRI folds and the DEEP codeword live here.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from vectorx_tpu_torch.field import goldilocks as gl
 
@@ -38,11 +39,49 @@ def mul_base(a, b):
     return gl.mul(a[0], b), gl.mul(a[1], b)
 
 
+def sqr(a):
+    return mul(a, a)
+
+
+def neg(a):
+    return gl.neg(a[0]), gl.neg(a[1])
+
+
 def inv(a):
     """1 / (a0 + a1 x) = (a0 - a1 x) / (a0^2 - W a1^2)."""
     norm = gl.sub(gl.sqr(a[0]), gl.mul_small(gl.sqr(a[1]), W))
     ninv = gl.inv(norm)
     return gl.mul(a[0], ninv), gl.mul(gl.neg(a[1]), ninv)
+
+
+def pow_const(a, e: int):
+    """Raise to a fixed Python-int power (square-and-multiply)."""
+    r = from_base(torch.ones_like(a[0]))
+    b = a
+    while e > 0:
+        if e & 1:
+            r = mul(r, b)
+        e >>= 1
+        if e:
+            b = sqr(b)
+    return r
+
+
+def from_base(b):
+    return b, torch.zeros_like(b)
+
+
+def eq(a, b):
+    return gl.eq(a[0], b[0]) & gl.eq(a[1], b[1])
+
+
+def zeros(shape, device):
+    return gl.zeros(shape, device), gl.zeros(shape, device)
+
+
+def from_pair_u64(c0, c1, device):
+    """Build from numpy arrays/ints of the two coefficients."""
+    return gl.from_u64(c0, device), gl.from_u64(c1, device)
 
 
 def to_pair_u64(a) -> tuple[np.ndarray, np.ndarray]:

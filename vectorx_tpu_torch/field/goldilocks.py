@@ -190,3 +190,15 @@ def to_u64(a: torch.Tensor) -> np.ndarray:
     """Canonical values as a host numpy uint64 array."""
     return canonicalize(a).cpu().numpy().view(np.uint64)
 
+
+def zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int64, device=device)
+
+
+def ones(shape, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.int64, device=device)
+
+
+def full(shape, value: int, device) -> torch.Tensor:
+    return torch.full(shape, to_i64(value % P), dtype=torch.int64,
+                      device=device)

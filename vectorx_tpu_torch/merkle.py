@@ -3,7 +3,9 @@ layout: stop `cap_height` levels below the root and publish all 2^cap_height
 nodes).  Port of the Poseidon half of `vectorx_tpu.merkle`.
 
 The prover's trees (`build_layers`, `DeviceTree`) stay on the device of the
-leaves they are given.  The verifier's path checks are host code: the
+leaves they are given; `build_tree` hashes there too and keeps the layers
+in host memory (`PoseidonMerkleTree`), for trees that are read at only a
+few positions.  The verifier's path checks are host code: the
 scalar `verify_path` walks with `poseidon_py`, and the batched walks run the
 port's own torch permutation on CPU tensors, one batched permutation per
 tree level across all queries.
@@ -87,6 +89,64 @@ def layers_from_digests(d: torch.Tensor, cap_height: int = 0) -> list:
         d = _rows_blocked(poseidon.two_to_one, d[0::2], d[1::2])
         layers.append(d)
     return layers
+
+
+class PoseidonMerkleTree:
+    """Merkle digest layers (leaf digests first, cap last) in host memory
+    as canonical (n, 4) uint64 numpy arrays: the same duck type as
+    DeviceTree for `cap_ints()`, with openings gathered on the host.
+
+    Trees written once and read at only Q positions (the streamed
+    prover's commitments, FRI fold layers) do not earn device residency:
+    keeping them on the host bounds the prover's device memory."""
+
+    __slots__ = ("layers", "cap_height", "_cap")
+
+    def __init__(self, layers, cap_height: int):
+        self.layers = layers          # list[np.ndarray (n, 4) uint64]
+        self.cap_height = cap_height
+        self._cap = None
+
+    @classmethod
+    def from_device(cls, tree: DeviceTree) -> "PoseidonMerkleTree":
+        """Copy a DeviceTree's layers to the host, each once."""
+        return cls([gl.to_u64(layer) for layer in tree.layers],
+                   tree.cap_height)
+
+    def nbytes(self) -> int:
+        return sum(layer.nbytes for layer in self.layers)
+
+    def cap_ints(self) -> list[list[int]]:
+        if self._cap is None:
+            self._cap = [[int(x) for x in row] for row in self.layers[-1]]
+        return self._cap
+
+    def open(self, index: int) -> list[list[int]]:
+        """Sibling digests from leaf level up to (but excluding) the cap."""
+        return [[int(x) for x in lvl[0]] for lvl in self.open_paths([index])]
+
+    def open_paths(self, indices) -> list:
+        """Sibling digests per level (leaf-first, cap excluded) for every
+        query index, as (Q, 4) uint64 arrays."""
+        cur = np.asarray(indices, dtype=np.int64)
+        sibs = []
+        for layer in self.layers[:-1]:
+            sibs.append(layer[cur ^ 1])
+            cur = cur >> 1
+        return sibs
+
+
+def build_tree(leaves: torch.Tensor, cap_height: int = 0) -> PoseidonMerkleTree:
+    """Host tree over (n, leaf_len) leaves, hashed on the leaves' device."""
+    return build_tree_from_digests(hash_leaves(leaves), cap_height)
+
+
+def build_tree_from_digests(d: torch.Tensor,
+                            cap_height: int = 0) -> PoseidonMerkleTree:
+    """Host tree over already-hashed (n, 4) leaf digests, its internal
+    layers hashed on the digests' device."""
+    return PoseidonMerkleTree.from_device(
+        DeviceTree(layers_from_digests(d, cap_height), cap_height))
 
 
 def _two_to_one_host(left: np.ndarray, right: np.ndarray) -> np.ndarray:

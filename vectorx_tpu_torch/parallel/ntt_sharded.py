@@ -40,6 +40,8 @@ from vectorx_tpu_torch.ntt.ntt import (_root_of_unity, device_powers,
                                        power_table)
 from vectorx_tpu_torch.parallel.mesh import Mesh
 
+P_GL = gl.P
+
 
 def _twiddle_table(log_n: int, inverse: bool):
     """Full (N,) table of w_N^i as canonical uint64 numpy."""
@@ -105,10 +107,10 @@ def coset_intt_blocks(x: torch.Tensor, mesh: Mesh, shift: int,
                         concat_dim=-2)
     y = four_step_ntt(y, mesh, inverse=True)            # (..., R/p, C)
     # shift^-(k1 + R·k2) = s^k1 · (s^R)^k2, this rank's k1 from rank·R/p
-    s = pow(shift, gl.P - 2, gl.P)
+    s = pow(shift, P_GL - 2, P_GL)
     k0 = mesh.rank * (R // p)
-    lo = gl.mul(device_powers(s, R // p, x.device), pow(s, k0, gl.P))
-    hi = device_powers(pow(s, R, gl.P), C, x.device)
+    lo = gl.mul(device_powers(s, R // p, x.device), pow(s, k0, P_GL))
+    hi = device_powers(pow(s, R, P_GL), C, x.device)
     return gl.mul(y, gl.mul(lo[:, None], hi[None, :]))
 
 

@@ -230,6 +230,8 @@ class Blake2bAir(Air):
         self.msg_digest_words = []
         for mi in range(len(self.messages)):
             self._run_message(mi)
+        self.digest_words = self.msg_digest_words[-1] \
+            if len(self.messages) == 1 else None
 
     def _run_message(self, mi: int):
         M64 = (1 << 64) - 1
@@ -291,6 +293,25 @@ class Blake2bAir(Air):
             m_carries.append(carries)
         self._per_msg.append((m_rows, m_inters, m_carries, chains))
         self.msg_digest_words.append(chains[-1][:4])
+
+    @property
+    def message(self) -> bytes:
+        assert len(self.messages) == 1
+        return self.messages[0]
+
+    @property
+    def blocks(self) -> list[bytes]:
+        assert len(self.messages) == 1
+        return self.msg_blocks[0]
+
+    @property
+    def num_blocks(self) -> int:
+        return sum(len(b) for b in self.msg_blocks)
+
+    def digest_bytes(self) -> bytes:
+        assert len(self.messages) == 1
+        return b"".join(int.to_bytes(x, 8, "little")
+                        for x in self.msg_digest_words[0])
 
     def digest_bytes_list(self) -> list[bytes]:
         return [b"".join(int.to_bytes(x, 8, "little") for x in d)

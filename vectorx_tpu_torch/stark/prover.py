@@ -23,8 +23,9 @@ import torch
 from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import extension as ge
 from vectorx_tpu_torch.field import goldilocks as gl
-from vectorx_tpu_torch.fri.fri import (FriConfig, FriProof, FriQueryRound,
-                                       FriQueryStep, derive_query_indices)
+from vectorx_tpu_torch.fri.fri import (FriConfig, FriQueryRound,
+                                       FriQueryStep, derive_query_indices,
+                                       fold_and_commit)
 from vectorx_tpu_torch.fri.transcript import Challenger
 from vectorx_tpu_torch.ntt.ntt import _root_of_unity
 from vectorx_tpu_torch.stark import stages
@@ -333,51 +334,6 @@ def _composition(air, public, boundaries, x_last, blowup, tr, ax, cl,
 
 
 # ---------------------------------------------------------------------------
-# FRI prove — fold/commit layers on the device
-# ---------------------------------------------------------------------------
-
-def _fri_prove_staged(L, log_len: int, shift: int, config: FriConfig,
-                      challenger: Challenger, spill: bool = False,
-                      domain=stages.LOCAL):
-    """Fold-and-commit layers.  Returns (FriProof without query rounds,
-    [(codeword, tree)] per layer): device codewords and DeviceTrees (or
-    `domain`'s layers and trees), or with `spill` (the streamed prover)
-    host uint64 codewords and HostTrees, moved off the device as each
-    layer is committed."""
-    layers = []
-    caps = []
-    c = L
-    n = 1 << log_len
-    cur_shift = shift
-    cur_log = log_len
-    while n > config.final_poly_len << config.rate_bits:
-        layer, tree = domain.fri_commit(
-            c, cur_log, min(config.cap_height, cur_log - 1))
-        if spill:
-            tree = stages.HostTree.from_device(tree)
-        cap = tree.cap_ints()
-        caps.append(cap)
-        challenger.observe_cap(cap)
-        beta = challenger.get_extension_challenge()
-        c = domain.fri_fold(layer, beta, cur_log, cur_shift)
-        layers.append((stages.spill_codeword(layer) if spill else layer,
-                       tree))
-        cur_shift = (cur_shift * cur_shift) % P
-        cur_log -= 1
-        n >>= 1
-    ok, final_coeffs = domain.fri_final(c, cur_log, cur_shift,
-                                        config.final_poly_len)
-    assert ok, "FRI input codeword exceeds the claimed degree bound"
-    for (a, b) in final_coeffs:
-        challenger.observe(a)
-        challenger.observe(b)
-    pow_witness = domain.grind(challenger, config.pow_bits, L[0].device)
-    proof = FriProof(caps=caps, final_coeffs=final_coeffs,
-                     pow_witness=pow_witness)
-    return proof, layers
-
-
-# ---------------------------------------------------------------------------
 # Opening assembly
 # ---------------------------------------------------------------------------
 
@@ -501,9 +457,9 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     del ldes
 
     # ---- FRI ------------------------------------------------------------------
-    fri_proof, fri_layers = _fri_prove_staged(L, log_N, gl.GENERATOR,
-                                              config.fri, challenger,
-                                              domain=domain)
+    fri_proof, fri_layers = fold_and_commit(L, log_N, gl.GENERATOR,
+                                            config.fri, challenger,
+                                            domain=domain)
     del L
     indices = derive_query_indices(challenger, log_N, config.fri.num_queries)
 
@@ -711,8 +667,8 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     del parts0, parts1
 
     # ---- FRI (codewords and trees move to the host as folding proceeds) -----
-    fri_proof, fri_host = _fri_prove_staged(L, log_N, gl.GENERATOR,
-                                            config.fri, challenger, spill=True)
+    fri_proof, fri_host = fold_and_commit(L, log_N, gl.GENERATOR,
+                                          config.fri, challenger, spill=True)
     del L
     indices = derive_query_indices(challenger, log_N, config.fri.num_queries)
 

@@ -49,6 +49,7 @@ import torch
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark.air import Air, DeviceAlgebra, bit_word
 
+ROUNDS = 64
 SECTION = 65  # 64 round rows + post-state/handoff row
 
 _K = [
@@ -222,6 +223,28 @@ class Sha256Air(Air):
                 chains.append(list(h))
             self._per_msg.append((section_w, section_states, chains))
             self.digests.append(list(h))
+
+    @property
+    def message(self) -> bytes:
+        assert len(self.messages) == 1
+        return self.messages[0]
+
+    @property
+    def blocks(self) -> list[bytes]:
+        assert len(self.messages) == 1
+        return self.msg_blocks[0]
+
+    @property
+    def num_blocks(self) -> int:
+        return sum(len(b) for b in self.msg_blocks)
+
+    @property
+    def digest(self) -> list[int]:
+        assert len(self.digests) == 1
+        return self.digests[0]
+
+    def digest_bytes(self) -> bytes:
+        return b"".join(int.to_bytes(x, 4, "big") for x in self.digest)
 
     def digest_bytes_list(self) -> list[bytes]:
         return [b"".join(int.to_bytes(x, 4, "big") for x in d)
@@ -648,3 +671,19 @@ class Sha256Air(Air):
                 (chain + st[64]) >> np.uint64(32)
             tr[c["H0"]:c["H0"] + 8, base + SECTION] = np.array(
                 chains[s + 1], dtype=np.uint64)
+
+
+class Sha256CompressAir(Sha256Air):
+    """One 64-byte block compressed from the IV, taken as already padded
+    (the single-block compression entry point, `bind="consts"`, log_n 7)."""
+
+    def __init__(self, block: bytes):
+        assert len(block) == 64
+        self.bind = "consts"
+        self.messages = [block]
+        self.msg_blocks = [[block]]
+        self.bases = [0]
+        self.total_rows = SECTION + 1
+        self._log_n = 7
+        Air.__init__(self, width=WIDTH, log_n=7, constraint_degree=4)
+        self._run()

@@ -8,8 +8,8 @@ Port of `vectorx_tpu.stark.stages`:
     quotient      : Z_H division -> coset iNTT -> chunk split
     DEEP eval     : every coefficient group at ζ and w·ζ
     DEEP compose  : the batched opening codeword L(x)
-    FRI           : fold + commit per layer, final coefficients
-    grind         : batched proof-of-work search
+    FRI, grind    : `vectorx_tpu_torch.fri.fri` (fold + commit per layer,
+                    final coefficients, proof of work), named here too
     openings      : every queried leaf + Merkle path in one gather
 
 Torch runs eagerly, so the reference's jit-cache machinery (`cached_jit`,
@@ -31,8 +31,13 @@ from vectorx_tpu_torch import merkle
 from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import extension as ge
 from vectorx_tpu_torch.field import goldilocks as gl
+# The FRI prover stages live in `fri.fri` (`stark/` imports `fri/`, never
+# the reverse) and are named here too, as the reference's stages names them.
+from vectorx_tpu_torch.fri.fri import (  # noqa: F401
+    LocalFri, fri_commit_layer, fri_final_coeffs, fri_fold, fri_fold_pairs,
+    grind, spill_codeword)
 from vectorx_tpu_torch.hash import poseidon
-from vectorx_tpu_torch.merkle import DeviceTree
+from vectorx_tpu_torch.merkle import DeviceTree, PoseidonMerkleTree
 from vectorx_tpu_torch.ntt import coset_intt, coset_lde, coset_ntt, intt
 from vectorx_tpu_torch.ntt.ntt import _root_of_unity, device_powers
 
@@ -178,6 +183,11 @@ def coset_eval_rows(c: torch.Tensor, shift: int) -> torch.Tensor:
     return rows_chunked(lambda a: coset_ntt(a, shift), c, c.shape[-1])
 
 
+def hash_rows_leaves(rows: torch.Tensor) -> torch.Tensor:
+    """Leaf digests of evaluation rows (R, n): columns are leaves."""
+    return merkle.hash_leaves(rows.T)
+
+
 def _absorb(state: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """One overwrite-mode sponge step of `poseidon.hash_no_pad` for every
     leaf at once: (N, 12) states, (N, k ≤ 8) lanes."""
@@ -197,7 +207,7 @@ def commit_streamed(c: torch.Tensor, log_N: int, cap_height: int):
     R = c.shape[0]
     N = 1 << log_N
     if R <= poseidon.DIGEST:
-        digs = merkle.hash_leaves(coset_lde_rows(c, N).T)
+        digs = hash_rows_leaves(coset_lde_rows(c, N))
     else:
         step = max(poseidon.RATE,
                    LDE_CHUNK_ELEMS // N // poseidon.RATE * poseidon.RATE)
@@ -210,56 +220,11 @@ def commit_streamed(c: torch.Tensor, log_N: int, cap_height: int):
             del e
         digs = st[:, :poseidon.DIGEST]
         del st
-    layers = merkle.layers_from_digests(digs, cap_height)
-    del digs
-    return HostTree.from_device(DeviceTree(layers, cap_height))
+    return merkle.build_tree_from_digests(digs, cap_height)
 
 
-class HostTree:
-    """Merkle digest layers kept in host memory as canonical (n, 4) uint64
-    numpy arrays — the same duck type as DeviceTree for `cap_ints()`; query
-    paths are gathered on the host (`open_paths`).
-
-    The streamed prover's commitments and FRI layers are written once and
-    read at only Q positions, so they do not earn device residency: keeping
-    them on the host bounds its device memory to the coefficient groups and
-    one stage's temporaries."""
-
-    __slots__ = ("layers", "cap_height", "_cap")
-
-    def __init__(self, layers, cap_height: int):
-        self.layers = layers          # list[np.ndarray (n, 4) uint64]
-        self.cap_height = cap_height
-        self._cap = None
-
-    @classmethod
-    def from_device(cls, tree: DeviceTree) -> "HostTree":
-        return cls([gl.to_u64(layer) for layer in tree.layers],
-                   tree.cap_height)
-
-    def nbytes(self) -> int:
-        return sum(layer.nbytes for layer in self.layers)
-
-    def cap_ints(self) -> list[list[int]]:
-        if self._cap is None:
-            self._cap = [[int(x) for x in row] for row in self.layers[-1]]
-        return self._cap
-
-    def open_paths(self, indices) -> list:
-        """Sibling digests per level (leaf-first, cap excluded) for every
-        query index, as (Q, 4) uint64 arrays."""
-        cur = np.asarray(indices, dtype=np.int64)
-        sibs = []
-        for layer in self.layers[:-1]:
-            sibs.append(layer[cur ^ 1])
-            cur = cur >> 1
-        return sibs
-
-
-def spill_codeword(c) -> tuple:
-    """FRI codeword (c0, c1) device tensors -> canonical host (c0, c1)
-    uint64 numpy arrays."""
-    return gl.to_u64(c[0]), gl.to_u64(c[1])
+# The streamed prover's name for the host tree (the reference's HostTree).
+HostTree = PoseidonMerkleTree
 
 
 def open_positions_host(indices, trees, fri_layers):
@@ -280,7 +245,7 @@ def open_positions_host(indices, trees, fri_layers):
     return group_paths, fri_pairs, fri_paths
 
 
-class LocalDomain:
+class LocalDomain(LocalFri):
     """How `prove` lays out the LDE domain: all of it on one device.
 
     `prove` reaches every stage that depends on the layout through these
@@ -320,20 +285,6 @@ class LocalDomain:
         """`deep_eval_groups` of the coefficient groups `commit_rows` and
         `quotient` returned."""
         return deep_eval_groups(groups, zeta, w_zeta, log_n)
-
-    def fri_commit(self, c, cur_log: int, cap_height: int):
-        """(layer, tree) of an FRI codeword over this layout's points:
-        `layer` is what `fri_fold` and `open_positions` read."""
-        return c, fri_commit_layer(c, cur_log, cap_height)
-
-    def fri_fold(self, layer, beta, cur_log: int, cur_shift: int):
-        return fri_fold(layer, beta, cur_log, cur_shift)
-
-    def fri_final(self, c, cur_log: int, cur_shift: int, final_len: int):
-        return fri_final_coeffs(c, cur_shift, final_len)
-
-    def grind(self, challenger, pow_bits: int, device) -> int:
-        return grind(challenger, pow_bits, device)
 
     def open_positions(self, indices, leaf_groups, trees, fri_layers):
         return open_positions(indices, leaf_groups, trees, fri_layers)
@@ -505,85 +456,6 @@ def _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x):
     s_c1 = gl.field_sum(gl.add(gl.mul(qc1, g0), gl.mul(qc0, g1)), 0)
     qdiff = ge.sub((s_c0, s_c1), ext_const(_ext_dot(qg, qz), dev))
     return ge.add(L, ge.mul(qdiff, inv_x_zeta))
-
-
-# ---------------------------------------------------------------------------
-# FRI: fold + commit per layer
-# ---------------------------------------------------------------------------
-
-def fri_commit_layer(c, cur_log: int, cap_height: int) -> DeviceTree:
-    """Commit to an extension codeword's pair-leaves (v[i], v[i+N/2])."""
-    c0, c1 = c
-    h = c0.shape[0] // 2
-    leaves = torch.stack([c0[:h], c1[:h], c0[h:], c1[h:]], dim=1)
-    return DeviceTree(merkle.build_layers(leaves, cap_height), cap_height)
-
-
-def fri_fold(c, beta, cur_log: int, cur_shift: int):
-    """One arity-2 fold: v'[i] = (v[i]+v[i+H])/2 + β·(v[i]−v[i+H])/(2·x_i)."""
-    c0, c1 = c
-    h = c0.shape[0] // 2
-    return fri_fold_pairs((c0[:h], c1[:h]), (c0[h:], c1[h:]), beta, cur_log,
-                          cur_shift, 0)
-
-
-def fri_fold_pairs(a, b, beta, cur_log: int, cur_shift: int, i0: int):
-    """`fri_fold` of the pairs (a, b) = (v[i], v[i+H]) for the leaves
-    i = i0, i0 + 1, ...: the next codeword's entries at those i."""
-    dev = a[0].device
-    w_inv = pow(_root_of_unity(cur_log, inverse=False), P - 2, P)
-    inv2x = gl.mul(shift_table(w_inv, a[0].shape[0], dev),
-                   pow(w_inv, i0, P) * pow(2 * cur_shift, P - 2, P) % P)
-    fo = ge.mul_base(ge.sub(a, b), inv2x)
-    fe = ge.mul_base(ge.add(a, b), pow(2, P - 2, P))
-    return ge.add(fe, ge.mul(fo, ext_const(beta, dev)))
-
-
-def fri_final_coeffs(c, cur_shift: int, final_len: int):
-    """Interpolate the last codeword; returns (ok, [(c0, c1)] coeffs) with
-    `ok` saying everything above final_len vanishes."""
-    f0 = gl.canonicalize(coset_intt(c[0], shift=cur_shift))
-    f1 = gl.canonicalize(coset_intt(c[1], shift=cur_shift))
-    ok = bool((f0[final_len:] == 0).all()) and bool((f1[final_len:] == 0).all())
-    a = gl.to_u64(f0[:final_len])
-    b = gl.to_u64(f1[:final_len])
-    return ok, [(int(x), int(y)) for x, y in zip(a, b)]
-
-
-# ---------------------------------------------------------------------------
-# Proof-of-work grind
-# ---------------------------------------------------------------------------
-
-def grind(challenger, pow_bits: int, device) -> int:
-    """Find a nonce whose transcript response has pow_bits leading zeros,
-    2^17 candidates per batched permutation on `device`.  Consumes
-    (observe nonce + one challenge) exactly as the verifier replays."""
-    if pow_bits == 0:
-        challenger.observe(0)
-        challenger.get_challenge()
-        return 0
-    assert pow_bits <= 32
-    k = len(challenger.input_buf)
-    base = list(challenger.state)
-    base[:k] = challenger.input_buf
-    batch = 1 << min(pow_bits + 2, 17)
-    st = gl.from_u64(np.array(base, dtype=np.uint64), device)
-    start = 0
-    while True:
-        nonces = torch.arange(start, start + batch, dtype=torch.int64,
-                              device=device)
-        states = st.expand(batch, poseidon.WIDTH).clone()
-        states[:, k] = nonces
-        out = gl.canonicalize(poseidon.permute(states)[:, poseidon.RATE - 1])
-        hit = ((out >> (64 - pow_bits)) & ((1 << pow_bits) - 1)) == 0
-        if bool(hit.any()):
-            nonce = start + int(torch.argmax(hit.to(torch.int32)))
-            challenger.observe(nonce)
-            response = challenger.get_challenge()
-            assert (response >> (64 - pow_bits)) == 0
-            return nonce
-        start += batch
-        assert start < (1 << 32), "grind exhausted 32-bit nonce space"
 
 
 # ---------------------------------------------------------------------------
