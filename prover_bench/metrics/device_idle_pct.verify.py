@@ -1,0 +1,10 @@
+"""device_idle_pct.verify: the share of a traced statement's verify span in
+which no operation runs on the card, in %."""
+
+from prover_bench.layers import idle_pct
+
+SPANS = []
+
+
+def read(run):
+    return idle_pct(run.spans, "verify")
