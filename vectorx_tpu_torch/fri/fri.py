@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from vectorx_tpu_torch import merkle
+from vectorx_tpu_torch import merkle, tracing
 from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import extension as ge
 from vectorx_tpu_torch.field import goldilocks as gl
@@ -83,16 +83,18 @@ def fri_commit_layer(c, cur_log: int, cap_height: int) -> DeviceTree:
     """Commit to an extension codeword's pair-leaves (v[i], v[i+N/2])."""
     c0, c1 = c
     h = c0.shape[0] // 2
-    leaves = torch.stack([c0[:h], c1[:h], c0[h:], c1[h:]], dim=1)
-    return DeviceTree(merkle.build_layers(leaves, cap_height), cap_height)
+    with tracing.span("fri.commit_layer"):
+        leaves = torch.stack([c0[:h], c1[:h], c0[h:], c1[h:]], dim=1)
+        return DeviceTree(merkle.build_layers(leaves, cap_height), cap_height)
 
 
 def fri_fold(c, beta, cur_log: int, cur_shift: int):
     """One arity-2 fold: v'[i] = (v[i]+v[i+H])/2 + β·(v[i]−v[i+H])/(2·x_i)."""
     c0, c1 = c
     h = c0.shape[0] // 2
-    return fri_fold_pairs((c0[:h], c1[:h]), (c0[h:], c1[h:]), beta, cur_log,
-                          cur_shift, 0)
+    with tracing.span("fri.fold"):
+        return fri_fold_pairs((c0[:h], c1[:h]), (c0[h:], c1[h:]), beta,
+                              cur_log, cur_shift, 0)
 
 
 def fri_fold_pairs(a, b, beta, cur_log: int, cur_shift: int, i0: int):
@@ -110,18 +112,25 @@ def fri_fold_pairs(a, b, beta, cur_log: int, cur_shift: int, i0: int):
 def fri_final_coeffs(c, cur_shift: int, final_len: int):
     """Interpolate the last codeword; returns (ok, [(c0, c1)] coeffs) with
     `ok` saying everything above final_len vanishes."""
-    f0 = gl.canonicalize(coset_intt(c[0], shift=cur_shift))
-    f1 = gl.canonicalize(coset_intt(c[1], shift=cur_shift))
-    ok = bool((f0[final_len:] == 0).all()) and bool((f1[final_len:] == 0).all())
-    a = gl.to_u64(f0[:final_len])
-    b = gl.to_u64(f1[:final_len])
-    return ok, [(int(x), int(y)) for x, y in zip(a, b)]
+    with tracing.span("fri.final"):
+        f0 = gl.canonicalize(coset_intt(c[0], shift=cur_shift))
+        f1 = gl.canonicalize(coset_intt(c[1], shift=cur_shift))
+        ok = bool((f0[final_len:] == 0).all()) and \
+            bool((f1[final_len:] == 0).all())
+        a = gl.to_u64(f0[:final_len])
+        b = gl.to_u64(f1[:final_len])
+        return ok, [(int(x), int(y)) for x, y in zip(a, b)]
 
 
 def grind(challenger: Challenger, pow_bits: int, device) -> int:
     """Find a nonce whose transcript response has pow_bits leading zeros,
     2^17 candidates per batched permutation on `device`.  Consumes
     (observe nonce + one challenge) exactly as the verifier replays."""
+    with tracing.span("fri.grind"):
+        return _grind(challenger, pow_bits, device)
+
+
+def _grind(challenger: Challenger, pow_bits: int, device) -> int:
     if pow_bits == 0:
         challenger.observe(0)
         challenger.get_challenge()

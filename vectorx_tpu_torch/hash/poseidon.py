@@ -20,6 +20,7 @@ import json
 import numpy as np
 import torch
 
+from vectorx_tpu_torch import tracing
 from vectorx_tpu_torch.field import goldilocks as gl
 
 P = gl.P
@@ -294,6 +295,11 @@ def _matmul_limbs(s: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation on a (..., 12) state."""
     assert state.shape[-1] == WIDTH
+    with tracing.span("poseidon.permute", states=state.numel() // WIDTH):
+        return _permute(state)
+
+
+def _permute(state: torch.Tensor) -> torch.Tensor:
     prm = _dev_params(state.device)
     rc = prm["rc"]
     half = FULL_ROUNDS // 2

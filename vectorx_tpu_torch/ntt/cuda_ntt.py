@@ -56,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from vectorx_tpu_torch import tracing
 from vectorx_tpu_torch.field import goldilocks as gl
 
 # the module, not the `ntt` function the package re-exports under that name
@@ -407,8 +408,10 @@ def coset_lde(x: torch.Tensor, rate_bits: int,
         raise ValueError(f"rate_bits={rate_bits} outside "
                          f"[0, {MAX_LOG_N} - log2(n)]")
     _check(x, log_n)
-    out = _run(x, plan_lde(x, rate_bits, shift, S_BITS), KERNELS)
-    return out.reshape(*x.shape[:-1], x.shape[-1] << rate_bits)
+    with tracing.span("ntt.coset_lde", rows=x.numel() >> log_n, log_n=log_n,
+                      rate_bits=rate_bits):
+        out = _run(x, plan_lde(x, rate_bits, shift, S_BITS), KERNELS)
+        return out.reshape(*x.shape[:-1], x.shape[-1] << rate_bits)
 
 
 def transform_plain(x: torch.Tensor, log_n: int, inverse: bool,

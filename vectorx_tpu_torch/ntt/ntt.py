@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from vectorx_tpu_torch import tracing
 from vectorx_tpu_torch.field import goldilocks as gl
 
 P = gl.P
@@ -116,11 +117,12 @@ def _transform(x: torch.Tensor, log_n: int, inverse: bool,
     from vectorx_tpu_torch.ntt import cuda_ntt
 
     x = x.contiguous()
-    if x.is_cuda:
-        return cuda_ntt.transform(x, log_n, inverse, shift)
-    if x.device.type != "cpu":
-        raise ValueError(f"no NTT for device {x.device}")
-    return cuda_ntt.transform_plain(x, log_n, inverse, shift)
+    with tracing.span("ntt.transform", rows=x.numel() >> log_n, log_n=log_n):
+        if x.is_cuda:
+            return cuda_ntt.transform(x, log_n, inverse, shift)
+        if x.device.type != "cpu":
+            raise ValueError(f"no NTT for device {x.device}")
+        return cuda_ntt.transform_plain(x, log_n, inverse, shift)
 
 
 def _log2(n: int) -> int:

@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from vectorx_tpu_torch import tracing
 from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import extension as ge
 from vectorx_tpu_torch.field import goldilocks as gl
@@ -375,10 +376,18 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     transcript, and so the proof, is the same under every layout."""
     if domain is stages.LOCAL and _use_streaming(air, config):
         return prove_streamed(air, trace_u64, config, device=device)
+    with tracing.span("stark.prove", rows=air.n, width=air.width) as sp:
+        return _prove(air, trace_u64, config, torch.device(device), domain,
+                      sp)
+
+
+def _prove(air: Air, trace_u64: np.ndarray, config: StarkConfig, dev,
+           domain, sp) -> StarkProof:
+    """`prove`'s unstreamed schedule; `sp` is its span, which opens a
+    stage span at each stage."""
     n = air.n
     W = air.width
     assert trace_u64.shape == (W, n)
-    dev = torch.device(device)
     blowup = 1 << config.rate_bits
     log_N = air.log_n + config.rate_bits
     cap_h = config.fri.cap_height
@@ -388,6 +397,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     challenger.observe_many(public)
 
     # ---- preprocessed (constant) columns ----------------------------------
+    sp.stage("stark.preprocess")
     consts_u64 = air.constant_columns()
     K = consts_u64.shape[0]
     const_tree, const_lde, const_coeff = preprocess(air, config, consts_u64,
@@ -396,12 +406,14 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
         challenger.observe_cap(const_tree.cap_ints())
 
     # ---- trace commit -------------------------------------------------------
+    sp.stage("stark.trace_commit")
     tr = gl.from_u64(trace_u64, dev)
     coeff, tr_lde, trace_tree = domain.commit_rows(tr, rate_bits=rate,
                                                    cap_height=cap_h)
     challenger.observe_cap(trace_tree.cap_ints())
 
     # ---- lookup/bus aux columns (committed after post-trace challenges) ---
+    sp.stage("stark.aux_commit")
     lookups = air.lookups()
     ports = air.bus_ports()
     _, _, A = bus_aux_layout(air)
@@ -418,6 +430,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     del tr
 
     # ---- constraint composition -------------------------------------------
+    sp.stage("stark.composition")
     alpha = challenger.get_extension_challenge()
     x = domain.points(stages.domain_x(log_N, gl.GENERATOR, dev))
     zh, zhinv = stages.zh_on_domain(air.log_n, rate, dev)
@@ -431,6 +444,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
         alpha, betas, deltas, x, domain.points(zh))
 
     # ---- quotient -----------------------------------------------------------
+    sp.stage("stark.quotient")
     chunks = _num_quotient_chunks(air)
     ok, q = domain.quotient(acc, domain.points(zhinv), chunks, rate)
     del acc
@@ -441,12 +455,14 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     challenger.observe_cap(quot_tree.cap_ints())
 
     # ---- DEEP openings (all groups at ζ and w·ζ) ---------------------------
+    sp.stage("stark.open_zeta")
     zeta = challenger.get_extension_challenge()
     w_zeta = ext_py.mul(zeta, ext_py.from_base(w))
     opened = _open_at_zeta((coeff, aux_coeff, const_coeff, q), chunks, zeta,
                            w_zeta, air.log_n, challenger, domain)
 
     # ---- DEEP composition codeword ------------------------------------------
+    sp.stage("stark.deep_compose")
     gamma = challenger.get_extension_challenge()
     npts = x.shape[0]
     ldes = tuple(None if g is None else g[:, :npts] for g in
@@ -457,6 +473,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     del ldes
 
     # ---- FRI ------------------------------------------------------------------
+    sp.stage("stark.fri")
     fri_proof, fri_layers = fold_and_commit(L, log_N, gl.GENERATOR,
                                             config.fri, challenger,
                                             domain=domain)
@@ -464,6 +481,7 @@ def prove(air: Air, trace_u64: np.ndarray, config: StarkConfig = StarkConfig(),
     indices = derive_query_indices(challenger, log_N, config.fri.num_queries)
 
     # ---- bulk query openings --------------------------------------------------
+    sp.stage("stark.query_openings")
     leaf_groups = [tr_lde, q_lde]
     trees = [trace_tree, quot_tree]
     if K:

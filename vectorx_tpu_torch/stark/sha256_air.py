@@ -46,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vectorx_tpu_torch import tracing
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.stark.air import Air, DeviceAlgebra, bit_word
 
@@ -618,10 +619,11 @@ class Sha256Air(Air):
     # -- witness ------------------------------------------------------------
 
     def build_trace(self) -> np.ndarray:
-        tr = np.zeros((WIDTH, self.n), dtype=np.uint64)
-        for mi in range(len(self.messages)):
-            self._build_message_trace(tr, mi)
-        return tr
+        with tracing.span("sha256_air.build_trace", rows=self.n):
+            tr = np.zeros((WIDTH, self.n), dtype=np.uint64)
+            for mi in range(len(self.messages)):
+                self._build_message_trace(tr, mi)
+            return tr
 
     def _build_message_trace(self, tr: np.ndarray, mi: int) -> None:
         """One message's sections, each written as whole-column slices."""

@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from vectorx_tpu_torch import merkle
+from vectorx_tpu_torch import merkle, tracing
 from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import extension as ge
 from vectorx_tpu_torch.field import goldilocks as gl
@@ -164,10 +164,11 @@ def commit_rows(rows: torch.Tensor, *, rate_bits: int, cap_height: int,
     LDE -> leaf hash (columns are leaves) -> Merkle layers.
     Returns (coeffs, lde, DeviceTree)."""
     N = rows.shape[-1] << rate_bits
-    c = intt_rows(rows) if do_intt else rows
-    lde = coset_lde_rows(c, N)
-    layers = merkle.build_layers(lde.T, cap_height=cap_height)
-    return c, lde, DeviceTree(layers, cap_height)
+    with tracing.span("stages.commit_rows", rows=rows.shape[0], points=N):
+        c = intt_rows(rows) if do_intt else rows
+        lde = coset_lde_rows(c, N)
+        layers = merkle.build_layers(lde.T, cap_height=cap_height)
+        return c, lde, DeviceTree(layers, cap_height)
 
 
 def coset_shift(c: int, log_N: int) -> int:

@@ -10,7 +10,7 @@ of the constant columns' commitment, `stark.vk.constants_cap`) on the
 
 from __future__ import annotations
 
-from vectorx_tpu_torch import merkle
+from vectorx_tpu_torch import merkle, tracing
 from vectorx_tpu_torch.field import ext_py
 from vectorx_tpu_torch.field import goldilocks as gl
 from vectorx_tpu_torch.fri.fri import fri_check_queries, fri_replay
@@ -30,6 +30,14 @@ def verify(air: Air, proof: StarkProof,
            preprocessed=None, *, device) -> bool:
     """Accept or reject `proof`.  `device` is where the verification key is
     derived when `preprocessed` is not given."""
+    with tracing.span("stark.verify", rows=air.n, width=air.width) as sp:
+        return _verify(air, proof, config, preprocessed, device, sp)
+
+
+def _verify(air: Air, proof: StarkProof, config: StarkConfig, preprocessed,
+            device, sp) -> bool:
+    """`verify`'s body; `sp` is its span, which opens a stage span for the
+    FRI transcript's replay and one for the query checks."""
     from vectorx_tpu_torch.stark.vk import constants_cap
 
     n = air.n
@@ -128,9 +136,11 @@ def verify(air: Air, proof: StarkProof,
         return False
 
     # ---- FRI replay + DEEP query checks ----------------------------------
+    sp.stage("verify.fri_replay")
     replay = fri_replay(proof.fri_proof, log_N, config.fri, challenger)
     if replay is None:
         return False
+    sp.stage("verify.queries")
     betas, indices = replay
     if len(proof.trace_openings) != len(indices) or \
             len(proof.quotient_openings) != len(indices):

@@ -31,6 +31,8 @@ import json
 import os
 import threading
 
+from vectorx_tpu_torch import tracing
+
 _MEM: dict = {}
 _LOCK = threading.Lock()
 
@@ -120,7 +122,9 @@ def constants_cap(air, config, *, device) -> list | None:
     if cap is None:
         from vectorx_tpu_torch.stark.prover import preprocess
 
-        cap = preprocess(air, config, consts, device=device)[0].cap_ints()
+        with tracing.span("vk.derive", columns=consts.shape[0],
+                          rows=consts.shape[1]):
+            cap = preprocess(air, config, consts, device=device)[0].cap_ints()
         _store(key, cap)
     if tkey is not None:
         _store(tkey, cap)
