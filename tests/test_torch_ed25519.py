@@ -127,3 +127,29 @@ def test_batch_verify_mask_and_malformed():
     big_s = sigs[0][:32] + (host.L).to_bytes(32, "little")
     assert not ted.batch_verify(pks, msgs, [big_s] + sigs[1:],
                                 rng=random.Random(0), device="cpu")
+
+
+def _ripple(cols):
+    """A sequential ripple carry of non-negative columns into 16-bit
+    digits plus the final carry limb."""
+    out, carry = [], 0
+    for c in cols:
+        carry += c
+        out.append(carry & 0xFFFF)
+        carry >>= 16
+    return out + [carry]
+
+
+@pytest.mark.parametrize("bits", [17, 18, 36, 48])
+def test_carry16_equals_a_sequential_ripple(bits):
+    """Random columns below 2^bits, and runs of 0xFFFF that a carry
+    crosses whole (the running max's case)."""
+    rng = np.random.default_rng(bits)
+    cols = rng.integers(0, 1 << bits, size=(64, 31), dtype=np.int64)
+    cols[:16, 1:30] = 0xFFFF
+    cols[:8, 0] = (1 << bits) - 1
+    cols[16:24] = (1 << bits) - 1
+    t = torch.from_numpy(cols.copy())
+    got = ted._carry16(t, bits)
+    assert np.array_equal(t.numpy(), cols)        # the input is not changed
+    assert got.tolist() == [_ripple(row) for row in cols.tolist()]

@@ -36,6 +36,7 @@ import hashlib
 import numpy as np
 import torch
 
+from vectorx_tpu_torch import tracing
 from vectorx_tpu_torch.curves import ed25519 as host
 
 Q = host.Q
@@ -80,22 +81,30 @@ def _carry16(cols: torch.Tensor, bits: int) -> torch.Tensor:
     column is ≤ 2^16 (the last column keeps its whole value).  Then a
     column can only pass a 1 on: it carries out iff it is 2^16, or it is
     0xFFFF and receives a carry — so the carry out of column i is that of
-    the last column j ≤ i that is not 0xFFFF, found by a running max."""
+    the last column j ≤ i that is not 0xFFFF, found by a running max.
+
+    Every step updates the padded copy in place (each shifted high part is
+    read before the columns are masked), a few launches a pass: a batched
+    ladder runs this some 30 times a point addition."""
     x = torch.nn.functional.pad(cols, (0, 1))
+    body, shifted = x[..., :-1], x[..., 1:]     # views of x
     bound = (1 << bits) - 1
     while bound > 1 << 16:
-        body = x[..., :-1]
-        x = torch.cat([body & MASK16, x[..., -1:]], dim=-1) \
-            + torch.nn.functional.pad(body >> 16, (1, 0))
+        high = body >> 16
+        body.bitwise_and_(MASK16)
+        shifted.add_(high)
         bound = MASK16 + (bound >> 16)
-    body = x[..., :-1]
-    k = body.shape[-1]
-    pos = torch.arange(k, device=body.device).expand_as(body)
+    pos = _positions(body.shape[-1], str(body.device))
     last = torch.cummax(torch.where(body == MASK16, -1, pos), dim=-1).values
     cout = torch.gather(body >> 16, -1, last.clamp(min=0)) * (last >= 0)
-    cin = torch.nn.functional.pad(cout[..., :-1], (1, 0))
-    return torch.cat([(body + cin) & MASK16, x[..., -1:] + cout[..., -1:]],
-                     dim=-1)
+    shifted.add_(cout)
+    body.bitwise_and_(MASK16)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _positions(k: int, device_str: str) -> torch.Tensor:
+    return torch.arange(k, device=device_str)
 
 
 def _fold_once(limbs: torch.Tensor, high_bits: int) -> torch.Tensor:
@@ -130,7 +139,7 @@ def sub(a, b):
     when a < b.  Then the 16 limbs hold (a − b) mod 2^256 and the borrow
     of 2^256 ≡ 38 is compensated by adding 2q − 38."""
     cols = a + (MASK16 - b)
-    cols[..., 0] += 1
+    cols[..., 0].add_(1)
     t = _carry16(cols, 18)
     limbs = t[..., :NLIMB]
     # 2q − 38 = 2^256 − 76 (fits 16 limbs); adding it ≡ −38 mod q
@@ -452,19 +461,30 @@ def batch_verify(pubkeys: list[bytes], msgs: list[bytes],
     a seeded `random.Random` in tests or `secrets.SystemRandom()` in a
     verifier); the curve work runs on `device`.  `method`: "msm" sums the
     2n+1 points with the Pippenger bucket pipeline at `MSM_WINDOW`; any
-    other value runs one batched double-and-add ladder and a reduction."""
-    terms = batch_terms(pubkeys, msgs, signatures, signed_mask, rng=rng)
-    if terms is None:
-        return False
-    scalars, points = terms
-    if not scalars:
-        return True
-    pts = tuple(from_ints([p[c] for p in points], device=device)
-                for c in range(4))
-    if method == "msm":
-        total = msm(scalars, pts, MSM_WINDOW)
-        return bool(is_identity(tuple(a[None, :] for a in total))[0])
-    bits = torch.from_numpy(
-        np.array([_bits_msb(s) for s in scalars], dtype=np.int64)).to(device)
-    total = _reduce_points(scalar_mult_batched(bits, pts))
-    return bool(is_identity(total)[0])
+    other value runs one batched double-and-add ladder and a reduction.
+
+    Spans: `ed25519_batch.batch_verify` (`terms`: 2·signed + 1), and in it
+    `ed25519_batch.terms` (the host's decompressions, challenges and
+    randomizers) and `ed25519_batch.ladder` or `ed25519_batch.msm` (the
+    curve work on `device`, up to the verdict's copy to the host)."""
+    signed = sum(map(bool, signed_mask or [True] * len(pubkeys)))
+    with tracing.span("ed25519_batch.batch_verify",
+                      terms=2 * signed + 1 if signed else 0) as sp:
+        sp.stage("ed25519_batch.terms")
+        terms = batch_terms(pubkeys, msgs, signatures, signed_mask, rng=rng)
+        if terms is None:
+            return False
+        scalars, points = terms
+        if not scalars:
+            return True
+        sp.stage("ed25519_batch.msm" if method == "msm"
+                 else "ed25519_batch.ladder")
+        pts = tuple(from_ints([p[c] for p in points], device=device)
+                    for c in range(4))
+        if method == "msm":
+            total = msm(scalars, pts, MSM_WINDOW)
+            return bool(is_identity(tuple(a[None, :] for a in total))[0])
+        bits = torch.from_numpy(np.array([_bits_msb(s) for s in scalars],
+                                         dtype=np.int64)).to(device)
+        total = _reduce_points(scalar_mult_batched(bits, pts))
+        return bool(is_identity(total)[0])

@@ -159,14 +159,16 @@ def aux_witness(air: Air, tr: torch.Tensor, consts: torch.Tensor,
         h_{p,s}·(β_s − addr − δ_s·v0' − δ_s²·v1') = m,  Z_s = Σ_{r<i} Σ_p h.
 
     Lookups are vectorized by arity; the bus takes one batched inverse."""
-    rows = []
-    if air.lookups():
-        rows.append(lookup_sums(air.lookups(), tr, consts, betas))
-    if air.bus_ports():
-        h = bus_helpers(air.bus_ports(), tr, consts, betas, deltas)
-        rows += [h.reshape(-1, h.shape[-1]),
-                 _exclusive_prefix_sum(gl.field_sum(h, 0))]
-    return torch.cat(rows)
+    with tracing.span("prover.aux_witness", lookups=len(air.lookups()),
+                      columns=bus_aux_layout(air)[2]):
+        rows = []
+        if air.lookups():
+            rows.append(lookup_sums(air.lookups(), tr, consts, betas))
+        if air.bus_ports():
+            h = bus_helpers(air.bus_ports(), tr, consts, betas, deltas)
+            rows += [h.reshape(-1, h.shape[-1]),
+                     _exclusive_prefix_sum(gl.field_sum(h, 0))]
+        return torch.cat(rows)
 
 
 def lookup_sums(lookups, tr: torch.Tensor, consts: torch.Tensor,
@@ -594,10 +596,19 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     (composition, DEEP) and the (N, 12) leaf sponges are built at full
     size; commitments and FRI layers go to the host (`stages.HostTree`),
     and the queried leaves are recomputed from their cosets."""
+    with tracing.span("stark.prove_streamed", rows=air.n, width=air.width,
+                      committed_columns=_commit_cols(air)) as sp:
+        return _prove_streamed(air, trace_u64, config, torch.device(device),
+                               sp)
+
+
+def _prove_streamed(air: Air, trace_u64: np.ndarray, config: StarkConfig,
+                    dev, sp) -> StarkProof:
+    """`prove_streamed`'s body; `sp` is its span, which opens a stage span
+    at each stage, under `prove`'s stage names."""
     n = air.n
     W = air.width
     assert trace_u64.shape == (W, n)
-    dev = torch.device(device)
     blowup = 1 << config.rate_bits
     log_N = air.log_n + config.rate_bits
     cap_h = config.fri.cap_height
@@ -607,6 +618,7 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     challenger.observe_many(public)
 
     # ---- preprocessed (constant) columns ----------------------------------
+    sp.stage("stark.preprocess")
     consts_u64 = air.constant_columns()
     K = consts_u64.shape[0]
     const_tree, _, const_coeff = preprocess(air, config, consts_u64,
@@ -615,12 +627,14 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
         challenger.observe_cap(const_tree.cap_ints())
 
     # ---- trace commit -------------------------------------------------------
+    sp.stage("stark.trace_commit")
     tr = gl.from_u64(trace_u64, dev)
     coeff = stages.to_coeffs(tr)
     trace_tree = stages.commit_streamed(coeff, log_N, cap_h)
     challenger.observe_cap(trace_tree.cap_ints())
 
     # ---- lookup/bus aux columns ----------------------------------------------
+    sp.stage("stark.aux_commit")
     lookups = air.lookups()
     ports = air.bus_ports()
     _, _, A = bus_aux_layout(air)
@@ -635,6 +649,7 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     del tr
 
     # ---- constraint composition, coset by coset -----------------------------
+    sp.stage("stark.composition")
     alpha = challenger.get_extension_challenge()
     w = _root_of_unity(air.log_n, inverse=False)
     x_last = pow(w, n - 1, P)
@@ -646,18 +661,20 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     parts0, parts1 = [], []
     for c in range(blowup):
         shift = stages.coset_shift(c, log_N)
-        a0, a1 = _composition(
-            air, public, boundaries, x_last, 1,
-            stages.coset_eval_rows(coeff, shift),
-            stages.coset_eval_rows(aux_coeff, shift) if A else empty,
-            stages.coset_eval_rows(const_coeff, shift) if K else empty,
-            alpha, betas, deltas, gl.mul(wt, shift), zh_vals[c])
+        with tracing.span("prover.composition_coset", coset=c, rows=n):
+            a0, a1 = _composition(
+                air, public, boundaries, x_last, 1,
+                stages.coset_eval_rows(coeff, shift),
+                stages.coset_eval_rows(aux_coeff, shift) if A else empty,
+                stages.coset_eval_rows(const_coeff, shift) if K else empty,
+                alpha, betas, deltas, gl.mul(wt, shift), zh_vals[c])
         parts0.append(a0)
         parts1.append(a1)
     acc = (_interleave_cosets(parts0), _interleave_cosets(parts1))
     del parts0, parts1
 
     # ---- quotient -----------------------------------------------------------
+    sp.stage("stark.quotient")
     _, zhinv = stages.zh_on_domain(air.log_n, rate, dev)
     chunks = _num_quotient_chunks(air)
     ok, q = stages.quotient_coeffs(acc, zhinv, chunks, rate)
@@ -667,6 +684,7 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     challenger.observe_cap(quot_tree.cap_ints())
 
     # ---- DEEP openings at ζ (coefficient side, as in `prove`) ----------------
+    sp.stage("stark.open_zeta")
     zeta = challenger.get_extension_challenge()
     w_zeta = ext_py.mul(zeta, ext_py.from_base(w))
     groups = (coeff, aux_coeff, const_coeff, q)
@@ -674,6 +692,7 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
                            challenger)
 
     # ---- DEEP composition codeword, coset by coset ---------------------------
+    sp.stage("stark.deep_compose")
     gamma = challenger.get_extension_challenge()
     parts0, parts1 = [], []
     for c in range(blowup):
@@ -685,12 +704,14 @@ def prove_streamed(air: Air, trace_u64: np.ndarray,
     del parts0, parts1
 
     # ---- FRI (codewords and trees move to the host as folding proceeds) -----
+    sp.stage("stark.fri")
     fri_proof, fri_host = fold_and_commit(L, log_N, gl.GENERATOR,
                                           config.fri, challenger, spill=True)
     del L
     indices = derive_query_indices(challenger, log_N, config.fri.num_queries)
 
     # ---- openings: recompute only the queried cosets --------------------------
+    sp.stage("stark.query_openings")
     named = [coeff, q] + ([const_coeff] if K else []) + \
         ([aux_coeff] if A else [])
     trees = [trace_tree, quot_tree] + ([const_tree] if K else []) + \

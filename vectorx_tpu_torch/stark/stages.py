@@ -207,21 +207,22 @@ def commit_streamed(c: torch.Tensor, log_N: int, cap_height: int):
     calls: a wide statement is not hashed once per coset."""
     R = c.shape[0]
     N = 1 << log_N
-    if R <= poseidon.DIGEST:
-        digs = hash_rows_leaves(coset_lde_rows(c, N))
-    else:
-        step = max(poseidon.RATE,
-                   LDE_CHUNK_ELEMS // N // poseidon.RATE * poseidon.RATE)
-        st = torch.zeros((N, poseidon.WIDTH), dtype=torch.int64,
-                         device=c.device)
-        for r0 in range(0, R, step):
-            e = coset_lde_rows(c[r0:r0 + step], N)
-            for a in range(0, e.shape[0], poseidon.RATE):
-                st = _absorb(st, e[a:a + poseidon.RATE].T)
-            del e
-        digs = st[:, :poseidon.DIGEST]
-        del st
-    return merkle.build_tree_from_digests(digs, cap_height)
+    with tracing.span("stages.commit_streamed", columns=R, points=N):
+        if R <= poseidon.DIGEST:
+            digs = hash_rows_leaves(coset_lde_rows(c, N))
+        else:
+            step = max(poseidon.RATE,
+                       LDE_CHUNK_ELEMS // N // poseidon.RATE * poseidon.RATE)
+            st = torch.zeros((N, poseidon.WIDTH), dtype=torch.int64,
+                             device=c.device)
+            for r0 in range(0, R, step):
+                e = coset_lde_rows(c[r0:r0 + step], N)
+                for a in range(0, e.shape[0], poseidon.RATE):
+                    st = _absorb(st, e[a:a + poseidon.RATE].T)
+                del e
+            digs = st[:, :poseidon.DIGEST]
+            del st
+        return merkle.build_tree_from_digests(digs, cap_height)
 
 
 # The streamed prover's name for the host tree (the reference's HostTree).
@@ -303,14 +304,15 @@ def quotient_coeffs(acc, zhinv: torch.Tensor, chunks: int, rate_bits: int):
     quotient-chunk coefficient rows (2·chunks, n)), rows interleaved
     [Q0.c0, Q0.c1, Q1.c0, ...]; `ok` says everything above chunks·n
     vanished."""
-    n = acc[0].shape[0] >> rate_bits
-    qc0 = gl.canonicalize(coset_intt(gl.mul(acc[0], zhinv)))
-    qc1 = gl.canonicalize(coset_intt(gl.mul(acc[1], zhinv)))
-    nn = chunks * n
-    ok = bool((qc0[nn:] == 0).all()) and bool((qc1[nn:] == 0).all())
-    q = torch.stack([qc0[:nn].reshape(chunks, n),
-                     qc1[:nn].reshape(chunks, n)], dim=1)
-    return ok, q.reshape(2 * chunks, n)
+    with tracing.span("stages.quotient_coeffs", points=acc[0].shape[0]):
+        n = acc[0].shape[0] >> rate_bits
+        qc0 = gl.canonicalize(coset_intt(gl.mul(acc[0], zhinv)))
+        qc1 = gl.canonicalize(coset_intt(gl.mul(acc[1], zhinv)))
+        nn = chunks * n
+        ok = bool((qc0[nn:] == 0).all()) and bool((qc1[nn:] == 0).all())
+        q = torch.stack([qc0[:nn].reshape(chunks, n),
+                         qc1[:nn].reshape(chunks, n)], dim=1)
+        return ok, q.reshape(2 * chunks, n)
 
 
 # ---------------------------------------------------------------------------
@@ -411,12 +413,14 @@ def deep_compose_coset(coeffs, opened, gamma, zeta, w_zeta,
     """Streamed variant: evaluate the coefficient groups (as in `ldes`) on
     stride-`blowup` coset `c` and form the DEEP codeword there."""
     n = coeffs[0].shape[-1]
-    s = coset_shift(c, log_N)
-    ldes = tuple(None if g is None else coset_eval_rows(g, s) for g in coeffs)
-    log_n = n.bit_length() - 1
-    x = gl.mul(shift_table(_root_of_unity(log_n, inverse=False), n,
-                           coeffs[0].device), s)
-    return _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x)
+    with tracing.span("stages.deep_compose_coset", coset=c, points=n):
+        s = coset_shift(c, log_N)
+        ldes = tuple(None if g is None else coset_eval_rows(g, s)
+                     for g in coeffs)
+        log_n = n.bit_length() - 1
+        x = gl.mul(shift_table(_root_of_unity(log_n, inverse=False), n,
+                               coeffs[0].device), s)
+        return _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x)
 
 
 def _deep_L(ldes, opened, gamma, zeta, w_zeta, W, A, K, chunks, x):
